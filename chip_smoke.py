@@ -5,24 +5,32 @@
 
 Phases, each of which raises on failure:
   1. card       name and power limit from nvidia-smi;
-  2. build      nvcc builds both kernels from csrc/ (timed);
+  2. build      nvcc builds the kernel sources of csrc/ in parallel (timed,
+                with each cell kernel's registers and spills from ptxas);
   3. masks      capsule-mask kernel == its plain version, bit for bit, on
                 segments from random poses through the port's renderer;
-  4. cell       ConvLSTM-cell kernel vs its plain version at the planner's
-                shapes (B=100, 6x8, Cx=C=256, k=5 and k=3) in bf16 and f32,
-                and at a small odd shape;
+  4. cell       the ConvLSTM-cell kernels vs their plain version at the
+                planner's shapes (B=100, 6x8, Cx=C=256, k=5 and k=3): in
+                bf16 the wgmma/TMA kernel the planner takes and the WMMA
+                kernel it replaced, and the float32 kernel; then small
+                odd shapes;
   5. parity     a small float32 CEM plan on the GPU (kernels) equals the
                 same plan on the CPU (plain versions) for injected noise;
   6. plan       the canonical planner of bench.py (svg, g_dim 256, z_dim 64,
                 bf16, dontcare, N=100, horizon 5, opt_iter 10, topk 5) with
                 weights initialised from a seed: one warm-up plan and three
-                timed plans, each of which must launch the cell kernel 160
-                times and the mask kernel 10 times;
+                timed plans, each of which must launch the cell 160 times,
+                every time through the wgmma/TMA kernel, and the mask
+                kernel 10 times;
   7. profile    one more canonical plan under torch.profiler: device time
                 by kernel and the share of the plan the device was busy;
   8. kernels    per kernel: launches in phase 6, device time per launch
                 (CUDA events), its plain version's time, the least time the card
-                could take (bound), and a PyTorch library call's time.
+                could take (bound), and a PyTorch library call's time; for the
+                cell per planner shape also the WMMA kernel's time on the same
+                inputs (the kernel it replaced), the GFLOP it multiplies, and
+                its stream-K schedule (tiles, k-steps, blocks in clusters of
+                two, waves, fill).
 
 Prints the card line and one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -68,7 +76,9 @@ SMALL = dict(CANONICAL, g_dim=16, z_dim=4, compute_dtype="float32",
 CELL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 PLAN_TOL = 1e-4
 MASK_SRC = "robot_aware_control_tpu_torch/csrc/capsule_mask.cu"
-CELL_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell.cu"
+CELL_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell_sm90.cu"
+CELL_REPLACES = "robot_aware_control_tpu/ops/pallas_kernels.py:146"
+PLANNER_CELLS = [(100, 6, 8, 256, 256, 5), (100, 6, 8, 256, 256, 3)]
 
 
 def cuda_ms(fn, n: int = 20, sleep_cycles: int = 200_000_000) -> float:
@@ -135,25 +145,41 @@ def cell_inputs(B, H, W, Cx, C, k, dtype, dev, seed):
     return ([t.to(dev, dtype) for t in (x, h, c, w)] + [b.to(dev)])
 
 
+def cell_err(got, want, tol):
+    err = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+        err = max(err, float((g.float() - w.float()).abs().max()))
+    return err
+
+
 def check_cells(dev):
+    """Max |kernel - plain| by (shape, path). Paths: "sm90" (wgmma/TMA, the
+    planner's), "wmma" (the kernel it replaced, called by name), "f32"."""
     errs = {}
-    # the planner's two cells, then odd shapes: 24/40 channels take the bf16
-    # kernel's 16-byte loads, 13/20 its element-wise loads
-    shapes = [(100, 6, 8, 256, 256, 5), (100, 6, 8, 256, 256, 3),
-              (3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3)]
+    # the planner's two cells, then odd shapes: 24/40 channels take the
+    # wgmma/TMA kernel in bf16 (a partial channel tile, a 5x7 map), 13/20
+    # the WMMA kernel's element-wise loads
+    shapes = PLANNER_CELLS + [(3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3)]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             args = cell_inputs(*shape, dtype, dev, seed=sum(shape))
-            got = kernels.conv_lstm_cell(*args)
             want = kernels.conv_lstm_cell_plain(*args)
             tol = CELL_TOL[dtype]
-            err = 0.0
-            for g, w in zip(got, want):
-                torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
-                err = max(err, float((g.float() - w.float()).abs().max()))
-            print(f"cell B,H,W,Cx,C,k={shape} {dtype}: max |kernel - plain| "
-                  f"= {err:.3g} (tolerance {tol} abs + rel)")
-            errs[(shape, dtype)] = err
+            sm90 = kernels.takes_sm90(*args[:4])
+            runs = {"sm90" if sm90 else "wmma" if dtype == torch.bfloat16
+                    else "f32": kernels.conv_lstm_cell}
+            if sm90:
+                runs["wmma"] = kernels.conv_lstm_cell_wmma
+            for path, fn in runs.items():
+                before = kernels.launches["conv_lstm_cell_sm90"]
+                got = fn(*args)
+                if (kernels.launches["conv_lstm_cell_sm90"] - before
+                        != (path == "sm90")):
+                    raise AssertionError(f"{shape} {dtype}: {path} expected")
+                err = errs[(shape, path)] = cell_err(got, want, tol)
+                print(f"cell B,H,W,Cx,C,k={shape} {dtype} {path}: max "
+                      f"|kernel - plain| = {err:.3g} (tolerance {tol} abs + rel)")
     return errs
 
 
@@ -191,7 +217,8 @@ def canonical_plans(n_timed: int = 3):
     policy = CEMPolicy(cfg, model)
     start, goal = start_goal(np.random.RandomState(0))
     # per model step, 2 cells in each of the prior and frame stacks
-    want = {"conv_lstm_cell": 4 * (cfg.horizon - 1) * cfg.opt_iter,
+    cells = 4 * (cfg.horizon - 1) * cfg.opt_iter
+    want = {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
             "capsule_mask_render": cfg.opt_iter}
     kernels.reset_launches()
     seconds = []
@@ -269,14 +296,32 @@ def time_mask(dev, launches, err):
                 bound_ms=bound, bound_by=by, library_ms=None)
 
 
+def ptxas_info(lib: str) -> str:
+    """Registers and spills of each kernel in `lib`, from ptxas -v output
+    captured by this process's build ("" if it did not build here)."""
+    out = kernels.build_log.get(lib, {}).get("output", "")
+    regs = [l.split("info    : ")[-1] for l in out.splitlines()
+            if "Used" in l and "registers" in l]
+    spills = [l.strip() for l in out.splitlines() if "spill stores" in l]
+    losses = [l.split("info    : ")[-1][:90] for l in out.splitlines()
+              if "Performance Loss" in l]
+    return "; ".join([f"{r} ({sp})" for r, sp in zip(regs, spills)] + losses)
+
+
 def time_cell(dev, launches, errs):
     """The planner launches cell0 (k=5) and cell1 (k=3) equally often, so
-    the per-launch numbers are the mean of the two shapes."""
+    the per-launch numbers are the mean of the two shapes. The WMMA kernel
+    the planner took before runs on the same inputs in the same call."""
     rows = []
-    for k in (5, 3):
-        B, H, W, Cx, C = 100, 6, 8, 256, 256
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in PLANNER_CELLS:
+        B, H, W, Cx, C, k = shape
         x, h, c, w, b = cell_inputs(B, H, W, Cx, C, k, torch.bfloat16, dev, 7)
-        ms = cuda_ms(lambda: kernels.conv_lstm_cell(x, h, c, w, b))
+        # turns: WMMA, wgmma, wgmma, WMMA
+        wmma = [cuda_ms(lambda: kernels.conv_lstm_cell_wmma(x, h, c, w, b))]
+        ms = [cuda_ms(lambda: kernels.conv_lstm_cell(x, h, c, w, b))
+              for _ in range(2)]
+        wmma.append(cuda_ms(lambda: kernels.conv_lstm_cell_wmma(x, h, c, w, b)))
         plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(x, h, c, w, b))
         xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)  # channels-last NCHW
         w_oihw = w.permute(3, 2, 0, 1).contiguous(
@@ -287,21 +332,41 @@ def time_cell(dev, launches, errs):
         nbytes = 2 * (x.numel() + h.numel() + c.numel() + w.numel()
                       + 2 * h.numel()) + 4 * b.numel()
         bound, by = bound_ms(ops, PEAK_BF16, nbytes)
-        err = errs[((B, H, W, Cx, C, k), torch.bfloat16)]
-        rows.append(dict(k=k, ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=bound, bound_by=by, gflop=ops / 1e9,
-                         max_abs_err=err))
-        print(f"cell k={k} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"cuDNN gate conv {lib:.4f} ms, bound {bound:.4f} ms ({by}, "
-              f"{ops / 1e9:.1f} GFLOP without the zero border)")
+        s = kernels.sm90_schedule(B, H, W, Cx, C, k, dev)
+        multiplied = s["steps"] * 2.0 * 128 * 256 * 64
+        per_block = -(-s["steps"] // s["grid"])
+        row = dict(k=k, ms=float(np.mean(ms)), ms_runs=ms,
+                   wmma_ms=float(np.mean(wmma)), wmma_ms_runs=wmma,
+                   plain_ms=plain, library_ms=lib, bound_ms=bound,
+                   bound_by=by, gflop=ops / 1e9,
+                   gflop_multiplied=multiplied / 1e9,
+                   gflop_dense=2.0 * B * H * W * k * k * (Cx + C) * 4 * C / 1e9,
+                   tiles=s["tiles"], blocks=s["grid"], steps=s["steps"],
+                   waves=s["grid"] / sms,
+                   fill=s["steps"] / (s["grid"] * per_block),
+                   max_abs_err=errs[(shape, "sm90")])
+        rows.append(row)
+        print(f"cell k={k} bf16: wgmma/TMA kernel {row['ms']:.4f} ms "
+              f"({', '.join(f'{v:.4f}' for v in ms)}), WMMA kernel "
+              f"{row['wmma_ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in wmma)}), "
+              f"plain {plain:.4f} ms, cuDNN gate conv {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}, {row['gflop']:.1f} GFLOP without the "
+              f"zero border, {row['gflop_dense']:.1f} dense, "
+              f"{row['gflop_multiplied']:.1f} multiplied = "
+              f"{multiplied / row['ms'] / 1e9:.0f} TFLOP/s); {s['tiles']} "
+              f"tiles, {s['steps']} k-steps on {s['grid']} blocks over {sms} "
+              f"SMs ({row['waves']:.2f} waves, fill {row['fill']:.4f})")
+    ptxas = ptxas_info("conv_lstm_cell_sm90")
+    print("ptxas, wgmma/TMA kernel: " + ptxas)
+    print("ptxas, conv_lstm_cell.cu: " + ptxas_info("conv_lstm_cell"))
     mean = lambda key: sum(r[key] for r in rows) / len(rows)
-    return dict(name="conv_lstm_cell", route="cuda", source=CELL_SRC,
-                replaces="robot_aware_control_tpu/ops/pallas_kernels.py:146",
-                launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+    return dict(name="conv_lstm_cell_sm90", route="cuda", source=CELL_SRC,
+                replaces=CELL_REPLACES, launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=mean("ms"), plain_ms=mean("plain_ms"),
                 bound_ms=mean("bound_ms"),
                 bound_by=rows[0]["bound_by"], library_ms=mean("library_ms"),
-                per_shape=rows)
+                wmma_ms=mean("wmma_ms"), ptxas=ptxas, per_shape=rows)
 
 
 def main() -> int:
@@ -319,7 +384,10 @@ def main() -> int:
 
     t = phase("build")
     kernels.build()
-    print(f"built {sorted(kernels.SOURCES)} in {time.perf_counter() - t:.1f} s")
+    print(f"built {sorted(kernels.SOURCES)} in {time.perf_counter() - t:.1f} s "
+          "(one nvcc each, in parallel; seconds until each was done: "
+          + ", ".join(f"{n} {v['seconds']:.1f}"
+                      for n, v in kernels.build_log.items()) + ")")
 
     # plain versions in full float32: cuDNN would otherwise use TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -339,7 +407,7 @@ def main() -> int:
     phase("kernels")
     line = {"kernels": [
         time_mask(dev, launches["capsule_mask_render"], mask_err),
-        time_cell(dev, launches["conv_lstm_cell"], cell_errs),
+        time_cell(dev, launches["conv_lstm_cell_sm90"], cell_errs),
     ]}
     print(card)
     print(json.dumps(line))

@@ -5,8 +5,13 @@ Two kernels replace the JAX package's two Pallas kernels
 
   * `capsule_mask_render`  (csrc/capsule_mask.cu): segment parameters
     (M, S, 6) -> robot masks (M, h, w) in {0, 1};
-  * `conv_lstm_cell`       (csrc/conv_lstm_cell.cu): one ConvLSTM cell,
-    gates accumulated in float32, outputs in the input's type.
+  * `conv_lstm_cell`: one ConvLSTM cell, gates accumulated in float32,
+    outputs in the input's type. bf16 cells whose channel counts are
+    multiples of 8 on 16-byte aligned tensors (the planner's) take the
+    wgmma/TMA kernel of csrc/conv_lstm_cell_sm90.cu; other bf16 shapes the
+    WMMA kernel and float32 cells the CUDA-core kernel of
+    csrc/conv_lstm_cell.cu. The path depends only on dtype, shape and
+    alignment.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback from one to the
@@ -18,11 +23,13 @@ and loaded with ctypes. Every launch adds one to `launches[<name>]`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 import torch.nn.functional as F
@@ -31,13 +38,20 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # library name -> (source file, extra nvcc flags). -fmad=false keeps the
-# mask kernel's arithmetic rounding step by step like its plain version.
+# mask kernel's arithmetic rounding step by step like its plain version;
+# -Xptxas -v puts registers and spills into `build_log`.
 SOURCES = {
     "capsule_mask": ("capsule_mask.cu", ["-fmad=false"]),
-    "conv_lstm_cell": ("conv_lstm_cell.cu", []),
+    "conv_lstm_cell": ("conv_lstm_cell.cu", ["-Xptxas", "-v"]),
+    "conv_lstm_cell_sm90": ("conv_lstm_cell_sm90.cu", ["-Xptxas", "-v"]),
 }
 
-launches = {"capsule_mask_render": 0, "conv_lstm_cell": 0}
+# "conv_lstm_cell" counts every cell launch, "conv_lstm_cell_sm90" those of
+# them that took the wgmma/TMA kernel
+launches = {"capsule_mask_render": 0, "conv_lstm_cell": 0,
+            "conv_lstm_cell_sm90": 0}
+# library name -> compiler output and seconds of the build in this process
+build_log: dict = {}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -73,6 +87,7 @@ def build(names=None) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = {}
+    t0 = time.perf_counter()
     for n in names:
         if os.path.exists(paths[n]):
             continue
@@ -90,6 +105,8 @@ def build(names=None) -> dict:
             failed.append(f"{SOURCES[n][0]}:\n{out}")
         else:
             os.replace(tmp, paths[n])  # atomic: concurrent processes see whole files
+            build_log[n] = {"output": out,
+                            "seconds": time.perf_counter() - t0}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
@@ -104,6 +121,11 @@ def _lib(name: str):
             if name == "capsule_mask":
                 lib.capsule_mask_render.argtypes = [ptr, ptr, i, i, i, i, ptr]
                 lib.capsule_mask_render.restype = i
+            elif name == "conv_lstm_cell_sm90":
+                lib.conv_lstm_cell_sm90.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
+                lib.conv_lstm_cell_sm90.restype = i
+                lib.conv_lstm_cell_sm90_schedule.argtypes = [i] * 6 + [ptr]
+                lib.conv_lstm_cell_sm90_schedule.restype = i
             else:
                 for fn in (lib.conv_lstm_cell_f32, lib.conv_lstm_cell_bf16):
                     fn.argtypes = [ptr] * 7 + [i] * 6 + [ptr]
@@ -189,8 +211,8 @@ _CELL_FN = {torch.float32: "conv_lstm_cell_f32",
             torch.bfloat16: "conv_lstm_cell_bf16"}
 
 
-def conv_lstm_cell(x, h, c, w, b):
-    """One ConvLSTM cell (gate order i, f, o, g). Returns (h_new, c_new)."""
+def _check_cell(x, h, c, w, b):
+    """Checks the shapes of a cell's inputs; returns (B, H, W, Cx, C, k)."""
     _check(x.dim() == 4 and h.dim() == 4 and h.shape == c.shape
            and x.shape[:3] == h.shape[:3],
            f"x {tuple(x.shape)} and h/c {tuple(h.shape)} must be NHWC "
@@ -203,8 +225,10 @@ def conv_lstm_cell(x, h, c, w, b):
            f"w must be (k, k, {Cx + C}, {4 * C}) with odd k, "
            f"got {tuple(w.shape)}")
     _check(tuple(b.shape) == (4 * C,), f"b must be ({4 * C},)")
-    if x.device.type == "cpu":
-        return conv_lstm_cell_plain(x, h, c, w, b)
+    return Bn, H, W, Cx, C, k
+
+
+def _check_cuda_cell(x, h, c, w, b):
     _check(x.is_cuda, f"unsupported device {x.device}")
     _check(all(t.device == x.device for t in (h, c, w, b)),
            "all inputs must be on one device")
@@ -214,16 +238,81 @@ def conv_lstm_cell(x, h, c, w, b):
     _check(b.dtype == torch.float32, "b must be float32")
     _check(all(t.is_contiguous() for t in (x, h, c, w, b)),
            "inputs must be contiguous")
-    _check(Bn * H * W * max(Cx, C) < 2 ** 31 and w.numel() < 2 ** 31,
-           "inputs too large for 32-bit indexing")
+    _check(x.numel() < 2 ** 31 and h.numel() < 2 ** 31
+           and w.numel() < 2 ** 31, "inputs too large for 32-bit indexing")
+
+
+def takes_sm90(x, h, c, w) -> bool:
+    """Whether a CUDA cell takes the wgmma/TMA kernel: bf16, channel counts
+    that are multiples of 8 (TMA's 16-byte row strides) and 16-byte aligned
+    tensors."""
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+            and h.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, h, c, w)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_schedule(Bn, H, W, Cx, C, k, device) -> dict:
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device):
+        err = _lib("conv_lstm_cell_sm90").conv_lstm_cell_sm90_schedule(
+            Bn, H, W, Cx, C, k, ctypes.addressof(out))
+    _check_err(err, "conv_lstm_cell_sm90_schedule")
+    return dict(zip(("tiles", "grid", "steps"), out))
+
+
+def sm90_schedule(Bn, H, W, Cx, C, k, device=None) -> dict:
+    """The wgmma/TMA kernel's stream-K schedule on `device`: output tiles,
+    persistent blocks (clusters of two, one block an SM) and k-steps summed
+    over the blocks (each a product of 128 x 256 x 64)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return dict(_sm90_schedule(Bn, H, W, Cx, C, k, index))
+
+
+def _launch_cell(fn_name, dims, x, h, c, w, b):
+    Bn, H, W, Cx, C, k = dims
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
-    fn = getattr(_lib("conv_lstm_cell"), _CELL_FN[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
-                 b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-                 Bn, H, W, Cx, C, k, stream)
-    _check_err(err, "conv_lstm_cell")
+        args = [x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
+                b.data_ptr(), h_out.data_ptr(), c_out.data_ptr()]
+        if fn_name == "conv_lstm_cell_sm90":
+            s = sm90_schedule(Bn, H, W, Cx, C, k, x.device)
+            # float32 partials of tiles cut between blocks, two slots a
+            # block; per tile an arrival and a done counter, zeroed
+            ws = torch.empty(2 * s["grid"] * 128 * 256, device=x.device)
+            counters = torch.zeros(2 * s["tiles"], device=x.device,
+                                   dtype=torch.int32)
+            args += [ws.data_ptr(), counters.data_ptr()]
+            fn = _lib("conv_lstm_cell_sm90").conv_lstm_cell_sm90
+        else:
+            fn = getattr(_lib("conv_lstm_cell"), fn_name)
+        err = fn(*args, Bn, H, W, Cx, C, k, stream)
+    _check_err(err, fn_name)
     launches["conv_lstm_cell"] += 1
+    if fn_name == "conv_lstm_cell_sm90":
+        launches["conv_lstm_cell_sm90"] += 1
     return h_out, c_out
+
+
+def conv_lstm_cell(x, h, c, w, b):
+    """One ConvLSTM cell (gate order i, f, o, g). Returns (h_new, c_new)."""
+    dims = _check_cell(x, h, c, w, b)
+    if x.device.type == "cpu":
+        return conv_lstm_cell_plain(x, h, c, w, b)
+    _check_cuda_cell(x, h, c, w, b)
+    fn_name = ("conv_lstm_cell_sm90" if takes_sm90(x, h, c, w)
+               else _CELL_FN[x.dtype])
+    return _launch_cell(fn_name, dims, x, h, c, w, b)
+
+
+def conv_lstm_cell_wmma(x, h, c, w, b):
+    """The WMMA kernel of csrc/conv_lstm_cell.cu on any bf16 CUDA cell.
+    `conv_lstm_cell` sends it only the shapes TMA cannot describe; this
+    entry point times it beside the wgmma kernel at the planner's shapes."""
+    dims = _check_cell(x, h, c, w, b)
+    _check_cuda_cell(x, h, c, w, b)
+    _check(x.dtype == torch.bfloat16, "the WMMA kernel takes bfloat16")
+    return _launch_cell("conv_lstm_cell_bf16", dims, x, h, c, w, b)

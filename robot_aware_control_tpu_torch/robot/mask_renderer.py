@@ -22,6 +22,7 @@ from robot_aware_control_tpu_torch.data import calibration as calib
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.robot import _locobot_tuned as _lt
 from robot_aware_control_tpu_torch.robot import locobot_kinematics as lk
+from robot_aware_control_tpu_torch.utils.device import resolve_device
 
 # per-segment radii (m) for [trunk, shoulder link, forearm, gripper] and
 # the gripper's thick-mask scale, tuned against MuJoCo segmentation renders
@@ -48,9 +49,9 @@ class CapsuleMaskRenderer:
     the locobot_c0 camera's image plane."""
 
     def __init__(self, image_size: Tuple[int, int] = (48, 64),  # (h, w)
-                 thick: bool = False, modified: bool = False, device="cpu"):
+                 thick: bool = False, modified: bool = False, device="cuda"):
         self.h, self.w = image_size
-        dev = torch.device(device)
+        dev = resolve_device(device)
         w2c = calib.get_world_to_camera("locobot_c0")
         K = calib.CAM_INTRINSICS["intel_realsense_d435"]
         ow, oh = calib.CAM_RESOLUTION["intel_realsense_d435"]

@@ -39,10 +39,25 @@ def test_gpu_mask_kernel_equals_plain(cuda):
     assert torch.equal(got, kernels.capsule_mask_render_plain(segs, 48, 64))
 
 
+def _cell_args(dev, dtype, B, H, W, Cx, C, k, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x, h, c = (torch.randn(B, H, W, n, generator=g) for n in (Cx, C, C))
+    w = torch.randn(k, k, Cx + C, 4 * C, generator=g) * 0.05
+    b = torch.randn(4 * C, generator=g) * 0.1
+    return [t.to(dev, dtype) for t in (x, h, c, w)] + [b.to(dev)]
+
+
+def _assert_cell_close(got, want, dtype, tol):
+    for gv, wv in zip(got, want):
+        assert gv.dtype == dtype
+        torch.testing.assert_close(gv.float(), wv.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-# channels in multiples of 8 take the bf16 kernel's 16-byte loads; 13/20 the
-# element-wise loads, and C=20 leaves part of a 32-channel tile empty
+# bf16 with channels in multiples of 8 takes the wgmma/TMA kernel; 13/20
+# channels the WMMA kernel's element-wise loads, and C=20 leaves part of a
+# 32-channel tile empty; float32 always the CUDA-core kernel
 @pytest.mark.parametrize("B,H,W,Cx,C,k", [(3, 5, 7, 24, 40, 5),
                                           (2, 6, 8, 13, 20, 3)])
 def test_gpu_cell_kernel_matches_plain(cuda, monkeypatch, dtype, tol,
@@ -50,18 +65,57 @@ def test_gpu_cell_kernel_matches_plain(cuda, monkeypatch, dtype, tol,
     """f32 to 1e-4 with TF32 off on the plain side; bf16 to one bf16
     rounding step (1e-2 absolute and relative)."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    g = torch.Generator().manual_seed(0)
-    x, h, c = (torch.randn(B, H, W, n, generator=g) for n in (Cx, C, C))
-    w = torch.randn(k, k, Cx + C, 4 * C, generator=g) * 0.05
-    b = torch.randn(4 * C, generator=g) * 0.1
-    args = [t.to(cuda, dtype) for t in (x, h, c, w)] + [b.to(cuda)]
-    before = kernels.launches["conv_lstm_cell"]
+    args = _cell_args(cuda, dtype, B, H, W, Cx, C, k)
+    before = dict(kernels.launches)
     got = kernels.conv_lstm_cell(*args)
-    assert kernels.launches["conv_lstm_cell"] == before + 1
-    want = kernels.conv_lstm_cell_plain(*args)
-    for gv, wv in zip(got, want):
-        assert gv.dtype == dtype
-        torch.testing.assert_close(gv.float(), wv.float(), rtol=tol, atol=tol)
+    sm90 = dtype == torch.bfloat16 and Cx % 8 == 0 and C % 8 == 0
+    assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
+    assert (kernels.launches["conv_lstm_cell_sm90"]
+            == before["conv_lstm_cell_sm90"] + sm90)
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*args), dtype, tol)
+
+
+# Cx != C catches misplaced B tiles; C = 40 a partial 64-channel tile; B = 3
+# and 13 a batch run (16 entries) that TMA fills past the end; 5x7 maps a
+# row narrower than the 8-column box; k = 5 on 5 or 6 rows skips row taps
+# at the border; the last case is the planner's cell0
+@pytest.mark.parametrize("B,H,W,Cx,C,k", [
+    (3, 6, 8, 64, 128, 5), (13, 5, 7, 64, 128, 3), (13, 6, 8, 40, 40, 3),
+    (3, 5, 7, 24, 40, 5), (13, 5, 7, 128, 64, 5), (100, 6, 8, 256, 256, 5)])
+def test_gpu_sm90_cell_matches_plain(cuda, B, H, W, Cx, C, k):
+    """The wgmma/TMA kernel to one bf16 rounding step (1e-2 absolute and
+    relative), launched once per call."""
+    args = _cell_args(cuda, torch.bfloat16, B, H, W, Cx, C, k, seed=B + k)
+    before = kernels.launches["conv_lstm_cell_sm90"]
+    got = kernels.conv_lstm_cell(*args)
+    assert kernels.launches["conv_lstm_cell_sm90"] == before + 1
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*args),
+                       torch.bfloat16, 1e-2)
+
+
+def test_gpu_wmma_cell_matches_plain_on_16_byte_rows(cuda):
+    """The WMMA kernel's 16-byte loads, which the planner's shapes take
+    when it is called by name."""
+    args = _cell_args(cuda, torch.bfloat16, 3, 5, 7, 24, 40, 5)
+    before = kernels.launches["conv_lstm_cell_sm90"]
+    got = kernels.conv_lstm_cell_wmma(*args)
+    assert kernels.launches["conv_lstm_cell_sm90"] == before
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*args),
+                       torch.bfloat16, 1e-2)
+
+
+def test_gpu_unaligned_bf16_cell_takes_wmma(cuda):
+    """A tensor TMA cannot address (not 16-byte aligned) goes to the WMMA
+    kernel, and the result still matches."""
+    x, h, c, w, b = _cell_args(cuda, torch.bfloat16, 2, 6, 8, 16, 16, 3)
+    x = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)[1:].view(
+        x.shape).copy_(x)
+    assert x.data_ptr() % 16 != 0
+    before = kernels.launches["conv_lstm_cell_sm90"]
+    got = kernels.conv_lstm_cell(x, h, c, w, b)
+    assert kernels.launches["conv_lstm_cell_sm90"] == before
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(x, h, c, w, b),
+                       torch.bfloat16, 1e-2)
 
 
 def test_gpu_cell_rejects_mixed_types(cuda):
@@ -95,5 +149,6 @@ def test_gpu_small_plan_goes_through_both_kernels(cuda, monkeypatch):
         plans[dev] = CEMPolicy(cfg, svg.init(cfg, 0, dev), device=dev
                                ).get_action(start, goal, noise=noise)
         launched = {k: kernels.launches[k] - before[k] for k in before}
-    assert launched == {"conv_lstm_cell": 16, "capsule_mask_render": 2}
+    assert launched == {"conv_lstm_cell": 16, "conv_lstm_cell_sm90": 0,
+                        "capsule_mask_render": 2}
     np.testing.assert_allclose(plans["cuda"], plans["cpu"], atol=1e-4)

@@ -30,7 +30,8 @@ def test_mask_render_equals_jax_exactly(rng, thick):
     jr = JRenderer((48, 64), thick=thick)
     want = np.asarray(jr.render(jnp.asarray(q)))
     want_pallas = np.asarray(jr.render_pallas(jnp.asarray(q), interpret=True))
-    got = CapsuleMaskRenderer((48, 64), thick=thick).render(torch.tensor(q))
+    got = CapsuleMaskRenderer((48, 64), thick=thick,
+                              device="cpu").render(torch.tensor(q))
     assert got.shape == (3, 7, 48, 64, 1) and got.dtype == torch.float32
     assert 0 < want.mean() < 1
     np.testing.assert_array_equal(got.numpy(), want)
@@ -41,7 +42,7 @@ def test_segment_params_match_jax(rng):
     """FK + projection to pixel-space capsules, to 1e-5 relative."""
     q = rng.uniform(-0.5, 0.5, (11, 5)).astype(np.float32)
     want = np.asarray(JRenderer((48, 64)).segment_params(jnp.asarray(q)))
-    got = CapsuleMaskRenderer((48, 64)).segment_params(torch.tensor(q))
+    got = CapsuleMaskRenderer((48, 64), device="cpu").segment_params(torch.tensor(q))
     assert got.shape == (11, 8, 6)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
@@ -129,3 +130,21 @@ def test_cell_wrapper_rejects_bad_weights():
     with pytest.raises(ValueError):  # even kernel size
         kernels.conv_lstm_cell(x, h, h, torch.zeros(2, 2, 12, 32),
                                torch.zeros(32))
+
+
+@pytest.mark.parametrize("dtype,cx,ch,offset,want", [
+    (torch.bfloat16, 256, 256, 0, True),   # the planner's cells
+    (torch.bfloat16, 24, 40, 0, True),     # a partial 64-channel tile
+    (torch.bfloat16, 13, 20, 0, False),    # rows not a multiple of 16 bytes
+    (torch.bfloat16, 16, 16, 1, False),    # x not 16-byte aligned
+    (torch.float32, 256, 256, 0, False),   # float32 keeps the CUDA-core kernel
+])
+def test_cell_kernel_choice(dtype, cx, ch, offset, want):
+    """Which CUDA kernel a cell takes depends only on dtype, channel counts
+    and alignment. The rule is plain Python, so it is checked here on CPU
+    tensors; the launches are checked on the card."""
+    x = torch.zeros(2 * 6 * 8 * cx + offset, dtype=dtype)[offset:].view(
+        2, 6, 8, cx)
+    h = torch.zeros(2, 6, 8, ch, dtype=dtype)
+    w = torch.zeros(3, 3, cx + ch, 4 * ch, dtype=dtype)
+    assert kernels.takes_sm90(x, h, h, w) is want
