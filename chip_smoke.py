@@ -8,7 +8,12 @@ Phases, each of which raises on failure:
   2. build      nvcc builds the kernel sources of csrc/ in parallel (timed,
                 with each cell kernel's registers and spills from ptxas);
   3. masks      capsule-mask kernel == its plain version, bit for bit, on
-                segments from random poses through the port's renderer;
+                the cases of tests/torch_mask_cases.py that the GPU tests
+                run: 500 planner poses through the port's renderer, other
+                counts and sizes (M = 1, 37 and 0; S = 1, 8 and 13; 48x64,
+                48x62 whose rows take 4-byte stores, and 5x7), capsules off
+                the image, degenerate, with zero and negative radii, covering
+                the image, near +-1e6, ending on a tile's edge, non-finite;
   4. cell       the ConvLSTM-cell kernels vs their plain version at the
                 planner's shapes (B=100, 6x8, Cx=C=256, k=5 and k=3): in
                 bf16 the wgmma/TMA kernel the planner takes and the WMMA
@@ -27,10 +32,14 @@ Phases, each of which raises on failure:
   8. kernels    per kernel: launches in phase 6, device time per launch
                 (CUDA events), its plain version's time, the least time the card
                 could take (bound), and a PyTorch library call's time; for the
-                cell per planner shape also the WMMA kernel's time on the same
-                inputs (the kernel it replaced), the GFLOP it multiplies, and
-                its stream-K schedule (tiles, k-steps, blocks in clusters of
-                two, waves, fill).
+                mask kernel also the operations dense and those its inputs
+                need, its time with every tile culled and with none culled,
+                the share of tests its skip rule keeps (the rule replayed in
+                PyTorch) and its registers and spills; for the cell per
+                planner shape also the WMMA kernel's time on the same
+                inputs (the kernel it
+                replaced), the GFLOP it multiplies, and its stream-K schedule
+                (tiles, k-steps, blocks in clusters of two, waves, fill).
 
 Prints the card line and one JSON line of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -39,6 +48,7 @@ Prints the card line and one JSON line of kernels, then, as the last line,
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -51,8 +61,12 @@ from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
-from robot_aware_control_tpu_torch.robot.mask_renderer import CapsuleMaskRenderer
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
+
+# the mask kernel's cases, shared with its GPU and CPU tests
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from torch_mask_cases import MASK_CASES, mask_case  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, float32 CUDA cores,
 # HBM3 bandwidth (at the full 700 W power limit)
@@ -115,25 +129,18 @@ def phase(name):
 
 
 # --------------------------------------------------------------- kernels
-def mask_inputs(M: int, seed: int, dev):
-    """Thick-mask segments of M random arm poses, as the planner renders."""
-    r = CapsuleMaskRenderer((48, 64), thick=True, device=dev)
-    q = np.random.RandomState(seed).uniform(-0.5, 0.5, (M, 5))
-    segs = r.segment_params(torch.tensor(q, dtype=torch.float32, device=dev))
-    return segs.contiguous()
-
-
 def check_masks(dev):
-    for M in (500, 37):
-        segs = mask_inputs(M, M, dev)
-        got = kernels.capsule_mask_render(segs, 48, 64)
-        want = kernels.capsule_mask_render_plain(segs, 48, 64)
+    for name in MASK_CASES:
+        segs, h, w = mask_case(name, dev)
+        got = kernels.capsule_mask_render(segs, h, w)
+        want = kernels.capsule_mask_render_plain(segs, h, w)
         torch.cuda.synchronize()
         differ = int((got != want).sum())
-        print(f"masks M={M}: {differ} pixels differ, "
-              f"{float(want.mean()):.4f} of pixels inside")
-        if differ:
-            raise AssertionError(f"mask kernel differs from plain at M={M}")
+        M, S = segs.shape[:2]
+        print(f"masks {name} M={M} S={S} {h}x{w}: {differ} pixels differ, "
+              f"{float(want.mean()) if M else 0.0:.4f} of pixels inside")
+        if differ or got.shape != (M, h, w):
+            raise AssertionError(f"mask kernel differs from plain on {name}")
     return 0.0
 
 
@@ -282,18 +289,69 @@ def valid_taps(H, W, k):
 
 
 def time_mask(dev, launches, err):
-    segs = mask_inputs(500, 500, dev)
+    segs, h, w = mask_case("planner_500", dev)
     M, S = segs.shape[:2]
-    ms = cuda_ms(lambda: kernels.capsule_mask_render(segs, 48, 64))
-    plain = cuda_ms(lambda: kernels.capsule_mask_render_plain(segs, 48, 64))
-    # 24 float32 operations per pixel and segment (one of them a division)
-    # plus 5 per segment; read the segments once, write the masks once
-    ops = M * S * (48 * 64 * 24 + 5)
-    bound, by = bound_ms(ops, PEAK_F32, segs.numel() * 4 + M * 48 * 64 * 4)
+    # the same launch with every (tile, capsule) test culled (the capsules
+    # moved 1000 px right of the image) and with none culled (radii of
+    # 1000 px): the kernel's cost without its tests and with all of them
+    culled, dense_segs = segs.clone(), segs.clone()
+    culled[..., 0] += 1000.0
+    culled[..., 2] += 1000.0
+    dense_segs[..., 4:] = 1000.0
+    for s, value in ((culled, 0.0), (dense_segs, 1.0)):
+        got = kernels.capsule_mask_render(s, h, w)
+        if not (torch.equal(got, kernels.capsule_mask_render_plain(s, h, w))
+                and bool((got == value).all())):
+            raise AssertionError("mask kernel wrong on the timing variants")
+    render = lambda s: (lambda: kernels.capsule_mask_render(s, h, w))
+    # turns: planner, every tile culled, none culled, planner
+    ms = [cuda_ms(render(segs), n=200)]
+    all_culled = cuda_ms(render(culled), n=200)
+    none_culled = cuda_ms(render(dense_segs), n=200)
+    ms.append(cuda_ms(render(segs), n=200))
+    plain = cuda_ms(lambda: kernels.capsule_mask_render_plain(segs, h, w))
+    # a yardstick for the write alone: PyTorch filling an output of this size
+    out = torch.empty(M, h, w, device=dev)
+    fill = cuda_ms(lambda: out.fill_(0.0), n=200)
+    # 24 float32 operations per pixel and capsule (one of them a division)
+    # plus 5 per capsule. The work these inputs need: the tests of the pixel
+    # centres inside a capsule's box grown by its larger radius (no margin,
+    # no tiles); outside it every test misses. Dense: every test.
+    au, av, bu, bv, ra, rb = segs.unbind(-1)
+    grow = torch.maximum(ra.abs(), rb.abs())
+    px = torch.arange(w, device=dev) + 0.5
+    py = torch.arange(h, device=dev) + 0.5
+
+    def inside(p, a, b):
+        lo = (torch.minimum(a, b) - grow)[..., None]
+        hi = (torch.maximum(a, b) + grow)[..., None]
+        return ((p >= lo) & (p <= hi)).sum(-1)
+
+    needed = int((inside(px, au, bu) * inside(py, av, bv)).sum())
+    ops = 24 * needed + 5 * M * S
+    dense = 24 * M * S * h * w + 5 * M * S
+    bound, by = bound_ms(ops, PEAK_F32, segs.numel() * 4 + M * h * w * 4)
+    rows, cols = kernels.MASK_TILE
+    # the kernel's skip rule replayed in PyTorch, not counted on the card
+    kept = kernels.capsule_mask_tests_kept(segs, h, w).float().mean().item()
+    ptxas = ptxas_info("capsule_mask")
+    print(f"mask M={M} S={S} {h}x{w}: kernel {np.mean(ms):.5f} ms "
+          f"({', '.join(f'{v:.5f}' for v in ms)}), every tile culled "
+          f"{all_culled:.5f} ms, none culled {none_culled:.5f} ms, plain "
+          f"{plain:.4f} ms, fill_ of the output {fill:.5f} ms, bound "
+          f"{bound:.5f} ms ({by}; {ops / 1e9:.4f} G operations the inputs "
+          f"need, {dense / 1e9:.4f} G dense); share of the tests the skip "
+          f"rule keeps on {rows}x{cols} tiles, replayed in PyTorch: "
+          f"{kept:.4f} (pixel centres inside a capsule's box: "
+          f"{needed / (M * S * h * w):.4f})")
+    print("ptxas, capsule_mask.cu: " + ptxas)
     return dict(name="capsule_mask_render", route="cuda", source=MASK_SRC,
                 replaces="robot_aware_control_tpu/ops/pallas_kernels.py:57",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                launches=launches, max_abs_err=err, ms=float(np.mean(ms)),
+                ms_runs=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, fill_ms=fill, ms_all_culled=all_culled,
+                ms_none_culled=none_culled, gops=ops / 1e9,
+                gops_dense=dense / 1e9, ptxas=ptxas)
 
 
 def ptxas_info(lib: str) -> str:

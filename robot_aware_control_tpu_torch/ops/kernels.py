@@ -37,11 +37,32 @@ import torch.nn.functional as F
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+
+# The mask kernel's tiles and skip rule (csrc/capsule_mask.cu; its header
+# note argues why a skipped test is a miss). A warp renders MASK_TILE =
+# (rows, columns) pixels, 4 adjacent pixels a lane, and tests a capsule only
+# where the tile's pixel centres meet the capsule's box grown by
+# max(|ra|, |rb|) + MASK_MARGIN_PX + MASK_MARGIN_REL * mag, with mag the sum
+# of the capsule's six |parameters|. A capsule whose mag is not below
+# MASK_MAX_MAGNITUDE (or not finite) is tested on every tile.
+MASK_TILE = (16, 8)
+MASK_MARGIN_PX = 1.0
+MASK_MARGIN_REL = 2.0 ** -16
+MASK_MAX_MAGNITUDE = 2.0 ** 60
+# 48 bytes of shared memory a capsule: 192 KB, within Hopper's 227 KB a
+# block (the launch opts in past the default 48 KB)
+MASK_MAX_SEGMENTS = 4096
+
 # library name -> (source file, extra nvcc flags). -fmad=false keeps the
 # mask kernel's arithmetic rounding step by step like its plain version;
 # -Xptxas -v puts registers and spills into `build_log`.
 SOURCES = {
-    "capsule_mask": ("capsule_mask.cu", ["-fmad=false"]),
+    "capsule_mask": ("capsule_mask.cu", [
+        "-fmad=false", "-Xptxas", "-v",
+        f"-DMASK_TILE_ROWS={MASK_TILE[0]}", f"-DMASK_TILE_COLS={MASK_TILE[1]}",
+        f"-DMASK_MARGIN_PX={MASK_MARGIN_PX.hex()}f",
+        f"-DMASK_MARGIN_REL={MASK_MARGIN_REL.hex()}f",
+        f"-DMASK_MAX_MAGNITUDE={MASK_MAX_MAGNITUDE.hex()}f"]),
     "conv_lstm_cell": ("conv_lstm_cell.cu", ["-Xptxas", "-v"]),
     "conv_lstm_cell_sm90": ("conv_lstm_cell_sm90.cu", ["-Xptxas", "-v"]),
 }
@@ -168,6 +189,43 @@ def capsule_mask_render_plain(segs: torch.Tensor, h: int, w: int) -> torch.Tenso
     return (dist2 <= rad * rad).any(1).float()
 
 
+def capsule_mask_boxes(segs: torch.Tensor) -> torch.Tensor:
+    """segs (M, S, 6) float32 -> (M, S, 4) [lo_u, hi_u, lo_v, hi_v]: each
+    capsule's box as the mask kernel computes it, in the same float32
+    operations; (-inf, inf) where the kernel tests the capsule everywhere."""
+    au, av, bu, bv, ra, rb = segs.float().unbind(-1)
+    mag = au.abs() + av.abs() + bu.abs() + bv.abs() + ra.abs() + rb.abs()
+    grow = torch.maximum(ra.abs(), rb.abs()) + (MASK_MARGIN_PX
+                                                + mag * MASK_MARGIN_REL)
+    box = torch.stack([torch.minimum(au, bu) - grow,
+                       torch.maximum(au, bu) + grow,
+                       torch.minimum(av, bv) - grow,
+                       torch.maximum(av, bv) + grow], -1)
+    everywhere = torch.tensor([-torch.inf, torch.inf, -torch.inf, torch.inf],
+                              device=segs.device)
+    return torch.where((mag < MASK_MAX_MAGNITUDE)[..., None], box, everywhere)
+
+
+def capsule_mask_tests_kept(segs: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """segs (M, S, 6) -> (M, S, h, w) bool: the pixel-capsule tests the mask
+    kernel does, those of the (warp tile, capsule) pairs whose box test
+    passes. It skips the others as misses."""
+    rows, cols = MASK_TILE
+    dev = segs.device
+
+    def centres(n, step):  # first and last pixel centre of each tile
+        start = torch.arange(0, n, step, device=dev)
+        last = torch.clamp(start + step, max=n) - 1
+        return start.float() + 0.5, last.float() + 0.5
+
+    x_lo, x_hi = centres(w, cols)
+    y_lo, y_hi = (c[:, None] for c in centres(h, rows))
+    lo_u, hi_u, lo_v, hi_v = capsule_mask_boxes(segs)[..., None, None].unbind(2)
+    kept = ~((x_hi < lo_u) | (x_lo > hi_u) | (y_hi < lo_v) | (y_lo > hi_v))
+    return kept.repeat_interleave(rows, 2).repeat_interleave(cols, 3)[
+        ..., :h, :w]
+
+
 def capsule_mask_render(segs: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """segs (M, S, 6) float32 -> masks (M, h, w) float32 in {0, 1}."""
     _check(segs.dim() == 3 and segs.shape[-1] == 6,
@@ -179,7 +237,11 @@ def capsule_mask_render(segs: torch.Tensor, h: int, w: int) -> torch.Tensor:
     _check(segs.is_contiguous(), "segs must be contiguous")
     _check(h > 0 and w > 0 and h * w < 2 ** 31, f"bad mask size {h}x{w}")
     M, S = segs.shape[0], segs.shape[1]
+    _check(S <= MASK_MAX_SEGMENTS,
+           f"at most {MASK_MAX_SEGMENTS} capsules a mask, got {S}")
     out = torch.empty((M, h, w), device=segs.device, dtype=torch.float32)
+    if M == 0:  # nothing to launch
+        return out
     lib = _lib("capsule_mask")
     with torch.cuda.device(segs.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -15,6 +15,7 @@ from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
+from torch_mask_cases import MASK_CASES, mask_case
 
 pytestmark = pytest.mark.gpu
 
@@ -26,17 +27,39 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_gpu_mask_kernel_equals_plain(cuda):
-    rng = np.random.RandomState(0)
-    a = rng.uniform(-10, 74, (37, 8, 2))
-    b = a + rng.randn(37, 8, 2) * 15
-    r = rng.uniform(0.5, 9.0, (37, 8, 2))
-    segs = torch.tensor(np.concatenate([a, b, r], -1).astype(np.float32),
-                        device=cuda)
+# ----------------------------------------------------------- capsule masks
+@pytest.mark.parametrize("case", list(MASK_CASES))
+def test_gpu_mask_kernel_equals_plain(cuda, case):
+    """Bit for bit, one launch (none for M = 0)."""
+    segs, h, w = mask_case(case, cuda)
     before = kernels.launches["capsule_mask_render"]
+    got = kernels.capsule_mask_render(segs, h, w)
+    assert kernels.launches["capsule_mask_render"] == before + (len(segs) > 0)
+    assert got.shape == (len(segs), h, w)
+    assert torch.equal(got, kernels.capsule_mask_render_plain(segs, h, w))
+
+
+def test_gpu_mask_kernel_past_the_default_shared_memory(cuda):
+    """MASK_MAX_SEGMENTS capsules a mask take more than the 48 KB of shared
+    memory a launch gets by default; the launch opts into more. Capsules at
+    the ends of the shared array each mark their own patch of the image."""
+    S = kernels.MASK_MAX_SEGMENTS
+    segs = torch.tensor([-1000.0, -1000.0, -990.0, -1000.0, 3.0, 3.0]
+                        ).repeat(2, S, 1)
+    for i, s in enumerate([0, 1023, 1024, 2047, 2048, S - 1]):
+        segs[i % 2, s] = torch.tensor([5.0 + 10 * i, 10.0 + 5 * i,
+                                       8.0 + 10 * i, 30.0, 2.0, 3.0])
+    segs = segs.to(cuda)
     got = kernels.capsule_mask_render(segs, 48, 64)
-    assert kernels.launches["capsule_mask_render"] == before + 1
-    assert torch.equal(got, kernels.capsule_mask_render_plain(segs, 48, 64))
+    want = kernels.capsule_mask_render_plain(segs, 48, 64)
+    assert torch.equal(got, want)
+    assert int(want[0].sum()) > 0 and int(want[1].sum()) > 0
+
+
+def test_gpu_mask_rejects_more_capsules_than_shared_memory_holds(cuda):
+    segs = torch.zeros(2, kernels.MASK_MAX_SEGMENTS + 1, 6, device=cuda)
+    with pytest.raises(ValueError, match="capsules"):
+        kernels.capsule_mask_render(segs, 48, 64)
 
 
 def _cell_args(dev, dtype, B, H, W, Cx, C, k, seed=0):

@@ -18,6 +18,8 @@ from robot_aware_control_tpu.robot.mask_renderer import (
 )
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.robot.mask_renderer import CapsuleMaskRenderer
+from torch_mask_cases import (BOX_EDGE_TILES, MASK_CASES, PLANNER_POSES,
+                              mask_case)
 
 
 # ----------------------------------------------------------- capsule masks
@@ -64,6 +66,60 @@ def test_mask_plain_equals_pallas_on_same_segments(rng):
 def test_mask_wrapper_rejects_bad_segments():
     with pytest.raises(ValueError):
         kernels.capsule_mask_render(torch.zeros(4, 8, 5), 48, 64)
+
+
+@pytest.mark.parametrize("case", [c for c in MASK_CASES if c != "empty"])
+def test_mask_skip_rule_drops_no_hit(case):
+    """Every capsule alone, through the Pallas kernel (interpret mode) and
+    the plain version, bit for bit: no pixel-capsule pair that the CUDA
+    kernel's skip rule (tile shape and margin from ops/kernels.py) leaves
+    out is a hit. The CUDA kernel is held to the plain version on the same
+    cases in tests/test_torch_port_gpu.py."""
+    segs, h, w = mask_case(case, "cpu")
+    M, S = segs.shape[:2]
+    one = segs.reshape(M * S, 1, 6)
+    hits = np.asarray(jax_capsule_mask_render(jnp.asarray(one.numpy()), h, w,
+                                              interpret=True))
+    hits = hits.reshape(M, S, h, w) > 0
+    plain = kernels.capsule_mask_render_plain(one, h, w).numpy()
+    np.testing.assert_array_equal(plain.reshape(M, S, h, w) > 0, hits)
+    kept = kernels.capsule_mask_tests_kept(segs, h, w).numpy()
+    assert not (hits & ~kept).any()
+
+
+def test_mask_skip_rule_on_planner_poses():
+    """On 500 planner poses the rule keeps under a quarter of the tests,
+    and the masks of the kept tests alone equal JAX `render`."""
+    segs, h, w = mask_case("planner_500", "cpu")
+    M, S = segs.shape[:2]
+    kept = kernels.capsule_mask_tests_kept(segs, h, w)
+    hits = kernels.capsule_mask_render_plain(segs.reshape(M * S, 1, 6), h, w)
+    got = (hits.reshape(M, S, h, w).bool() & kept).any(1).float()
+    want = JRenderer((h, w), thick=True).render(
+        jnp.asarray(PLANNER_POSES, jnp.float32))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[..., 0])
+    assert float(kept.float().mean()) < 0.25
+
+
+def test_mask_skip_rule_cases_mean_what_they_say():
+    """Off-image capsules miss everywhere and the whole-image ones hit
+    everywhere; a tile whose outer pixel centre lies exactly on a box edge
+    is tested, one float32 step short of it is skipped; capsules with a
+    non-finite parameter or a magnitude past the limit are never skipped."""
+    assert not kernels.capsule_mask_render(*mask_case("off_image", "cpu")).any()
+    assert kernels.capsule_mask_render(*mask_case("whole_image", "cpu")).all()
+    segs, h, w = mask_case("box_edge", "cpu")
+    kept = kernels.capsule_mask_tests_kept(segs, h, w)
+    rows, cols = kernels.MASK_TILE
+    for s, (ty, tx) in enumerate(BOX_EDGE_TILES):
+        tile = (slice(ty * rows, (ty + 1) * rows),
+                slice(tx * cols, (tx + 1) * cols))
+        assert kept[0, s][tile].all() and not kept[1, s][tile].any()
+    segs, h, w = mask_case("nonfinite", "cpu")
+    wild = (~segs.isfinite().all(-1)
+            | (segs.abs().sum(-1) >= kernels.MASK_MAX_MAGNITUDE))
+    assert int(wild.sum()) == 6
+    assert kernels.capsule_mask_tests_kept(segs, h, w)[wild].all()
 
 
 # ----------------------------------------------------------- ConvLSTM cell
