@@ -15,10 +15,10 @@ Phases, each of which raises on failure:
                 the image, degenerate, with zero and negative radii, covering
                 the image, near +-1e6, ending on a tile's edge, non-finite;
   4. cell       the ConvLSTM-cell kernels vs their plain version at the
-                planner's shapes (B=100, 6x8, Cx=C=256, k=5 and k=3): in
-                bf16 the wgmma/TMA kernel the planner takes and the WMMA
-                kernel it replaced, and the float32 kernel; then small
-                odd shapes;
+                planner's shapes (B=100, 6x8, Cx=C=256, k=5 and k=3) and the
+                trainer's eval shapes (B=16, the same otherwise): in bf16
+                the wgmma/TMA kernel both take and the WMMA kernel it
+                replaced, and the float32 kernel; then small odd shapes;
   5. parity     a small float32 CEM plan on the GPU (kernels) equals the
                 same plan on the CPU (plain versions) for injected noise;
   6. plan       the canonical planner of bench.py (svg, g_dim 256, z_dim 64,
@@ -29,9 +29,26 @@ Phases, each of which raises on failure:
                 kernel 10 times;
   7. profile    one more canonical plan under torch.profiler: device time
                 by kernel and the share of the plan the device was busy;
-  8. kernels    per kernel: launches in phase 6, device time per launch
-                (CUDA events), its plain version's time, the least time the card
-                could take (bound), and a PyTorch library call's time; for the
+  8. train      SVG training (training/step.py, training/trainer.py):
+                GPU-vs-CPU parity of one small float32 train step (loss,
+                metrics, gradients, BatchNorm statistics; TF32 off) and of
+                one eval step through the float32 cell kernel; the
+                trainer's full-width bf16 eval step (B=16) with the cell
+                kernel against the same step with its plain version; at the
+                training config of bench.py:136-156 (g_dim 256, z_dim 64,
+                batch 128, window 6, bf16) 2 warm-up and 5 timed steps for
+                each of remat none, full and conv (median step time,
+                frames/s = 128 x 6 / step, peak memory, no kernel
+                launched, one profiled step), the step's FLOP count and
+                bound; then PredictionTrainer at full width on the
+                synthetic experiment: it trains, runs its eval epoch
+                through the wgmma/TMA cell kernel (launches counted),
+                writes a checkpoint, and a second trainer resumes from it;
+  9. kernels    per kernel: launches in phase 6, device time per launch
+                (CUDA events) at the planner's shapes, its plain version's
+                time, the least time the card could take (bound), and a
+                PyTorch library call's time (for the cell also at the eval
+                shapes, reported apart); for the
                 mask kernel also the operations dense and those its inputs
                 need, its time with every tile culled and with none culled,
                 the share of tests its skip rule keeps (the rule replayed in
@@ -41,7 +58,8 @@ Phases, each of which raises on failure:
                 replaced), the GFLOP it multiplies, and its stream-K schedule
                 (tiles, k-steps, blocks in clusters of two, waves, fill).
 
-Prints the card line and one JSON line of kernels, then, as the last line,
+Prints the card line, one JSON line of the train phase and one of
+kernels, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
@@ -49,8 +67,10 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,12 +81,24 @@ from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
+from robot_aware_control_tpu_torch.training import checkpoint as ckpt
+from robot_aware_control_tpu_torch.training.step import make_train_step
+from robot_aware_control_tpu_torch.training.trainer import PredictionTrainer
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 
 # the mask kernel's cases, shared with its GPU and CPU tests
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from torch_mask_cases import MASK_CASES, mask_case  # noqa: E402
+from torch_train_small import (  # noqa: E402
+    EVAL_TOL,
+    GRAD_TOL_DEVICES,
+    TRAIN,
+    TRAIN_TOL,
+    bench_batch,
+    eval_kernel_vs_plain,
+    train_step_parity,
+)
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, float32 CUDA cores,
 # HBM3 bandwidth (at the full 700 W power limit)
@@ -93,6 +125,9 @@ MASK_SRC = "robot_aware_control_tpu_torch/csrc/capsule_mask.cu"
 CELL_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell_sm90.cu"
 CELL_REPLACES = "robot_aware_control_tpu/ops/pallas_kernels.py:146"
 PLANNER_CELLS = [(100, 6, 8, 256, 256, 5), (100, 6, 8, 256, 256, 3)]
+# the trainer's eval epoch: B = test_batch_size = 16, 24 output tiles
+# for 132 persistent blocks, another stream-K split than the planner's
+EVAL_CELLS = [(16, 6, 8, 256, 256, 5), (16, 6, 8, 256, 256, 3)]
 
 
 def cuda_ms(fn, n: int = 20, sleep_cycles: int = 200_000_000) -> float:
@@ -164,16 +199,20 @@ def check_cells(dev):
     """Max |kernel - plain| by (shape, path). Paths: "sm90" (wgmma/TMA, the
     planner's), "wmma" (the kernel it replaced, called by name), "f32"."""
     errs = {}
-    # the planner's two cells, then odd shapes: 24/40 channels take the
-    # wgmma/TMA kernel in bf16 (a partial channel tile, a 5x7 map), 13/20
-    # the WMMA kernel's element-wise loads
-    shapes = PLANNER_CELLS + [(3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3)]
+    # the planner's two cells, the trainer's eval cells, then odd shapes:
+    # 24/40 channels take the wgmma/TMA kernel in bf16 (a partial channel
+    # tile, a 5x7 map), 13/20 the WMMA kernel's element-wise loads
+    shapes = PLANNER_CELLS + EVAL_CELLS + [(3, 5, 7, 24, 40, 5),
+                                           (2, 6, 8, 13, 20, 3)]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             args = cell_inputs(*shape, dtype, dev, seed=sum(shape))
             want = kernels.conv_lstm_cell_plain(*args)
             tol = CELL_TOL[dtype]
             sm90 = kernels.takes_sm90(*args[:4])
+            if (dtype == torch.bfloat16 and shape in PLANNER_CELLS + EVAL_CELLS
+                    and not sm90):
+                raise AssertionError(f"{shape} bf16 does not take sm90")
             runs = {"sm90" if sm90 else "wmma" if dtype == torch.bfloat16
                     else "f32": kernels.conv_lstm_cell}
             if sm90:
@@ -369,10 +408,11 @@ def ptxas_info(lib: str) -> str:
 def time_cell(dev, launches, errs):
     """The planner launches cell0 (k=5) and cell1 (k=3) equally often, so
     the per-launch numbers are the mean of the two shapes. The WMMA kernel
-    the planner took before runs on the same inputs in the same call."""
+    the planner took before runs on the same inputs in the same call. The
+    trainer's eval shapes (B = 16) are timed too, and reported apart."""
     rows = []
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for shape in PLANNER_CELLS:
+    for shape in PLANNER_CELLS + EVAL_CELLS:
         B, H, W, Cx, C, k = shape
         x, h, c, w, b = cell_inputs(B, H, W, Cx, C, k, torch.bfloat16, dev, 7)
         # turns: WMMA, wgmma, wgmma, WMMA
@@ -393,7 +433,7 @@ def time_cell(dev, launches, errs):
         s = kernels.sm90_schedule(B, H, W, Cx, C, k, dev)
         multiplied = s["steps"] * 2.0 * 128 * 256 * 64
         per_block = -(-s["steps"] // s["grid"])
-        row = dict(k=k, ms=float(np.mean(ms)), ms_runs=ms,
+        row = dict(B=B, k=k, ms=float(np.mean(ms)), ms_runs=ms,
                    wmma_ms=float(np.mean(wmma)), wmma_ms_runs=wmma,
                    plain_ms=plain, library_ms=lib, bound_ms=bound,
                    bound_by=by, gflop=ops / 1e9,
@@ -404,7 +444,7 @@ def time_cell(dev, launches, errs):
                    fill=s["steps"] / (s["grid"] * per_block),
                    max_abs_err=errs[(shape, "sm90")])
         rows.append(row)
-        print(f"cell k={k} bf16: wgmma/TMA kernel {row['ms']:.4f} ms "
+        print(f"cell B={B} k={k} bf16: wgmma/TMA kernel {row['ms']:.4f} ms "
               f"({', '.join(f'{v:.4f}' for v in ms)}), WMMA kernel "
               f"{row['wmma_ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in wmma)}), "
               f"plain {plain:.4f} ms, cuDNN gate conv {lib:.4f} ms, bound "
@@ -417,14 +457,186 @@ def time_cell(dev, launches, errs):
     ptxas = ptxas_info("conv_lstm_cell_sm90")
     print("ptxas, wgmma/TMA kernel: " + ptxas)
     print("ptxas, conv_lstm_cell.cu: " + ptxas_info("conv_lstm_cell"))
-    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    plan, ev = rows[:len(PLANNER_CELLS)], rows[len(PLANNER_CELLS):]
+    mean = lambda key, rs=plan: sum(r[key] for r in rs) / len(rs)
     return dict(name="conv_lstm_cell_sm90", route="cuda", source=CELL_SRC,
                 replaces=CELL_REPLACES, launches=launches,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=mean("ms"), plain_ms=mean("plain_ms"),
                 bound_ms=mean("bound_ms"),
                 bound_by=rows[0]["bound_by"], library_ms=mean("library_ms"),
-                wmma_ms=mean("wmma_ms"), ptxas=ptxas, per_shape=rows)
+                wmma_ms=mean("wmma_ms"), ptxas=ptxas, per_shape=rows,
+                eval_shapes=dict(ms=mean("ms", ev), bound_ms=mean("bound_ms", ev),
+                                 plain_ms=mean("plain_ms", ev),
+                                 library_ms=mean("library_ms", ev),
+                                 max_abs_err=max(r["max_abs_err"] for r in ev)))
+
+
+# ----------------------------------------------------------------- train
+def check_train_parity():
+    """One small float32 train step and one eval step on the GPU against
+    the same on the CPU (tests/torch_train_small.py:train_step_parity)."""
+    errs, launched = train_step_parity()
+    print("small f32 train step, GPU vs CPU: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tolerance {TRAIN_TOL}; gradients {GRAD_TOL_DEVICES} of each "
+        f"leaf's norm); GPU eval step: {launched['cuda'][1]['conv_lstm_cell']}"
+        " float32 cell launches, train step none")
+    return errs
+
+
+def check_eval_kernel():
+    """The trainer's full-width bf16 eval step (B = 16) with the cell
+    kernel against the same step with the kernel's plain version
+    (tests/torch_train_small.py:eval_kernel_vs_plain)."""
+    result = eval_kernel_vs_plain()
+    for mode, r in result.items():
+        print(f"full-width bf16 eval step ({mode}), kernel vs plain cell: "
+              f"predictions {r['preds']:.3g}, metrics {r['metrics']:.3g} of "
+              f"their max (tolerance {EVAL_TOL}); "
+              f"{r['launched']['conv_lstm_cell_sm90']} sm90 launches")
+    return result
+
+
+def train_step_timing(dev):
+    """The bench.py training config at batch 128 for each remat mode: 2
+    warm-up and 5 timed steps (host clock, each ending in a sync), peak
+    memory, 0 kernel launches, one profiled step; the FLOP count of a step (torch's FlopCounterMode: convolutions forward
+    and backward, counted from their shapes)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    rows, profiles = {}, {}
+    flops = None
+    for mode in ("none", "full", "conv"):
+        cfg = Config(**dict(TRAIN, remat=mode != "none",
+                            remat_policy="full" if mode == "none" else mode))
+        model = svg.init(cfg, seed=0, device=dev, train=True)
+        step, _ = make_train_step(cfg, model)
+        batch = bench_batch(cfg, cfg.batch_size, 0, dev)
+        gen = torch.Generator(dev).manual_seed(0)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, losses = [], []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, 1.0, gen)["loss"]))
+            torch.cuda.synchronize()
+            if i >= 2:
+                seconds.append(time.perf_counter() - t0)
+        if any(kernels.launches.values()):
+            raise AssertionError(f"train steps launched {kernels.launches}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"remat {mode}: loss {losses}")
+        med = statistics.median(seconds)
+        window = cfg.n_past + cfg.n_future
+        rows[mode] = dict(step_s=med, step_s_runs=seconds,
+                          frames_per_s=cfg.batch_size * window / med,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          loss=losses[-1])
+        print(f"train remat {mode}: step {med:.4f} s (median of 5: "
+              + ", ".join(f"{v:.4f}" for v in seconds)
+              + f"), {rows[mode]['frames_per_s']:.1f} frames/s, peak "
+              f"{rows[mode]['peak_gb']:.2f} GB, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, 0 kernel launches")
+        if mode == "none":
+            with FlopCounterMode(display=False) as fc:
+                step(batch, 1.0, gen)
+            flops = fc.get_total_flops()
+        profiles[mode] = profile_train_step(step, batch, gen, mode)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    bound = flops / PEAK_BF16 * 1e3
+    print(f"train step: {flops / 1e12:.3f} TFLOP (convolutions and cells, "
+          f"forward and backward) = bound {bound:.2f} ms at "
+          f"{PEAK_BF16 / 1e12:.0f} TFLOP/s bf16; the steps take "
+          + ", ".join(f"{m} {r['step_s'] * 1e3 / bound:.1f}x"
+                      for m, r in rows.items()) + " of it")
+    for mode, r in rows.items():
+        r["profile"] = profiles[mode]
+    return rows, dict(tflop=flops / 1e12, bound_ms=bound)
+
+
+def profile_train_step(step, batch, gen, mode):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, 1.0, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        print("profiler recorded no device time: busy share not measured")
+        return None
+    print(f"profiled train step (remat {mode}): {wall:.1f} ms wall (profiler "
+          f"on), device busy {busy:.1f} ms = {busy / wall:.1%}")
+    for ms, n, key in rows[:10]:
+        print(f"  {ms:9.2f} ms {ms / busy:6.1%} {n:5d}x  {key[:100]}")
+    return dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                top=[dict(ms=ms, count=n, kernel=key[:100])
+                     for ms, n, key in rows[:10]])
+
+
+def check_trainer():
+    """PredictionTrainer at full width (g_dim 256, z_dim 64, bf16) on the
+    synthetic experiment: one epoch of 2 videos, its eval epoch through
+    the wgmma/TMA cell kernel, a checkpoint, and a resume from it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        cfg = Config(**dict(TRAIN, experiment="synthetic", batch_size=32,
+                            test_batch_size=16, niter=1, epoch_size=2,
+                            video_length=31, n_eval=10, eval_interval=1,
+                            checkpoint_interval=1, log_dir=d, jobname="smoke"))
+        tr = PredictionTrainer(cfg)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr.train()
+        seconds = time.perf_counter() - t0
+        launched = dict(kernels.launches)
+        eval_batches = 2  # the synthetic test set, cfg.eval_batches = 0
+        cells = (6 * (cfg.n_eval - 1) * (cfg.video_length // cfg.n_eval) * 2
+                 * eval_batches)
+        if launched != {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
+                        "capsule_mask_render": 0}:
+            raise AssertionError(f"trainer launched {launched}, expected "
+                                 f"{cells} cells, all through sm90")
+        path = ckpt.latest_checkpoint(tr.log_dir)
+        windows = cfg.epoch_size * (cfg.video_length // 6)
+        if tr._step != windows or not path.endswith(f"ckpt_{windows}.npz"):
+            raise AssertionError(f"trainer at step {tr._step}, saved {path}")
+        tr2 = PredictionTrainer(cfg)
+        tr2._resume()
+        if tr2._step != tr._step:
+            raise AssertionError(f"resumed at {tr2._step}, saved {tr._step}")
+        with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        tr.logger.close()
+        tr2.logger.close()
+    train = next(r for r in recs if "train/loss" in r)
+    ev = next(r for r in recs if "eval/autoreg_psnr" in r)
+    if not all(np.isfinite(v) for r in (train, ev) for v in r.values()):
+        raise AssertionError(f"non-finite trainer metrics {train} {ev}")
+    out = dict(seconds=seconds, steps=tr._step, checkpoint=os.path.basename(path),
+               resumed_step=tr2._step, cell_launches=launched["conv_lstm_cell"],
+               sm90_launches=launched["conv_lstm_cell_sm90"],
+               frames_per_s=train["train/frames_per_sec"],
+               loss=train["train/loss"],
+               autoreg_psnr=ev["eval/autoreg_psnr"],
+               autoreg_ssim=ev["eval/autoreg_ssim"])
+    print(f"trainer: {out['steps']} steps and an eval epoch in {seconds:.1f} s "
+          f"({out['frames_per_s']:.1f} frames/s over the epoch, data "
+          f"generation included), {cells} cell launches in the eval epoch, "
+          f"all through sm90; wrote {out['checkpoint']}, resumed at step "
+          f"{tr2._step}; loss {out['loss']:.4f}, autoregressive PSNR "
+          f"{out['autoreg_psnr']:.2f}, SSIM {out['autoreg_ssim']:.4f}")
+    return out
 
 
 def main() -> int:
@@ -467,7 +679,20 @@ def main() -> int:
         time_mask(dev, launches["capsule_mask_render"], mask_err),
         time_cell(dev, launches["conv_lstm_cell_sm90"], cell_errs),
     ]}
+
+    # training: the train step runs no hand kernel; the trainer's eval
+    # epoch runs the cell kernel
+    phase("train")
+    parity = check_train_parity()
+    eval_kernel = check_eval_kernel()
+    modes, flops = train_step_timing(dev)
+    trainer = check_trainer()
+    line["kernels"][1]["launches_trainer_eval"] = trainer["cell_launches"]
     print(card)
+    print(json.dumps({"train": {"card": card, "parity": parity,
+                                "eval_kernel_vs_plain": eval_kernel,
+                                "remat": modes, "flops": flops,
+                                "trainer": trainer}}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,17 +9,28 @@ src/prediction/models/dynamics.py:457-644):
   Gaussian-ConvLSTM learned prior p(z|x_t,a_t,r_t) and posterior
   q(z|x_{t+1},r_{t+1}).
 
-`SVG.forward` is the JAX package's `svg.step` at inference: BatchNorm uses
-its running statistics, the recurrent state is threaded through `Carry`,
-and random draws come from an explicit `torch.Generator`. As in the JAX
-package the posterior encodes the *next* frame unless
-cfg.posterior_use_current_frame. Planning never runs the posterior; it is
-here so that trained parameters load whole.
+`SVG.forward` is the JAX package's `svg.step`. The recurrent state is
+threaded through `Carry`; random draws come from an explicit
+`torch.Generator`, or are passed in (`noise`), as the train step does so
+that a checkpointed step recomputes the same draws. With `train=True`
+BatchNorm normalizes by batch statistics and the step returns their
+updates in `out["bn_stats"]`, in the order the JAX step threads its state:
+the current-frame encoder, the next-frame encoder, the decoder; the
+ConvLSTM cells take the autograd path. With `train=False` BatchNorm uses
+its running statistics and the cells the hand kernel when
+cfg.fused_lstm. As in the JAX package the posterior encodes the *next*
+frame unless cfg.posterior_use_current_frame.
+
+A model built for inference (`init`, `convert.svg_from_jax`) stores its
+convolution weights in the compute dtype; one built for training
+(`init(..., train=True)`) stores every parameter in float32, as the JAX
+tree does, and each layer casts its weights to the activations' type at
+use, so that the optimizer updates float32 master weights.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -82,10 +93,16 @@ def _encoder_input(cfg: Config, image, mask, heatmap):
 
 
 class SVG(nn.Module):
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, device=None, param_dtype=None):
         super().__init__()
+        if cfg.lstm_group_norm:
+            raise NotImplementedError(
+                "lstm_group_norm: the GroupNorm ConvLSTM cell is not ported yet")
+        if cfg.model_use_heatmap:
+            raise NotImplementedError(
+                "model_use_heatmap: heatmap conditioning is not ported yet")
         self.cfg = cfg
-        dt = compute_dtype(cfg)
+        dt = param_dtype or compute_dtype(cfg)
         g = cfg.g_dim
         self.encoder = ConvEncoder(g, cfg.enc_channels, dt, device)
         self.decoder = ConvDecoder(g, cfg.channels + 1, dt, device)
@@ -97,22 +114,33 @@ class SVG(nn.Module):
         self.posterior = L.GaussianConvLSTM(g, g, cfg.z_dim, dt, device)
 
     def forward(self, carry: Carry, image, mask, robot, heatmap, action,
-                generator: torch.Generator, next_image=None, next_mask=None,
-                next_robot=None, next_heatmap=None, skip=None,
-                force_use_prior: bool = False, sample_mean: bool = False):
+                generator: Optional[torch.Generator] = None, next_image=None,
+                next_mask=None, next_robot=None, next_heatmap=None, skip=None,
+                use_curr_skip: Optional[bool] = None,
+                force_use_prior: bool = False, sample_mean: bool = False,
+                train: bool = False, noise=None):
         """One prediction step (reference: dynamics.py:544-644).
 
-        Returns (out, new_carry); out holds x_pred (B, H, W, channels + 1),
-        skip, curr_skip and the posterior/prior statistics mu/logvar,
-        mu_p/logvar_p (None when unused)."""
+        `noise` = (eps_prior, eps_post), float32 (B, fh, fw, z_dim) draws
+        used in place of the generator's. Returns (out, new_carry); out
+        holds x_pred (B, H, W, channels + 1), skip, curr_skip, the
+        posterior/prior statistics mu/logvar, mu_p/logvar_p (None when
+        unused) and bn_stats (the train-mode BatchNorm updates, else
+        None)."""
         cfg = self.cfg
         dtype = compute_dtype(cfg)
         fh, fw = cfg.feat_height, cfg.feat_width
+        stats = [] if train else None
+        fused = cfg.fused_lstm and not train
+        eps_prior, eps_post = noise if noise is not None else (None, None)
 
         img = _encoder_input(cfg, image, mask, heatmap).to(dtype)
-        h, curr_skip = self.encoder(img)
+        h, curr_skip = self.encoder(img, stats)
         if cfg.last_frame_skip or skip is None:
             skip = curr_skip
+        elif use_curr_skip is not None:
+            skip = (curr_skip if use_curr_skip
+                    else [s.to(c.dtype) for c, s in zip(curr_skip, skip)])
 
         a = _tile(action.to(dtype), fh, fw)
         if cfg.model_use_robot_state:
@@ -126,7 +154,7 @@ class SVG(nn.Module):
             frame_cond = [a]
         prior_in = self.prior_in(torch.cat(frame_cond + [h], -1))
         z_p, mu_p, logvar_p, prior_carry = self.prior(
-            prior_in, carry.prior, generator)
+            prior_in, carry.prior, generator, fused, eps_prior)
         z = mu_p if sample_mean else z_p
 
         mu = logvar = None
@@ -137,34 +165,38 @@ class SVG(nn.Module):
             else:
                 next_img = _encoder_input(cfg, next_image, next_mask,
                                           next_heatmap)
-                h_target, _ = self.encoder(next_img.to(dtype))
+                h_target, _ = self.encoder(next_img.to(dtype), stats)
             if cfg.model_use_robot_state:
                 post_feed = torch.cat(
                     [_tile(next_robot.to(dtype), fh, fw), h_target], -1)
             else:
                 post_feed = h_target
             z_t, mu, logvar, post_carry = self.posterior(
-                self.post_in(post_feed), carry.posterior, generator)
+                self.post_in(post_feed), carry.posterior, generator, fused,
+                eps_post)
             if not force_use_prior:
                 z = z_t
 
         frame_in = self.frame_in(torch.cat(frame_cond + [h, z.to(dtype)], -1))
-        h_pred, frame_carry = self.frame_lstm(frame_in, carry.frame)
-        x_pred = self.decoder(h_pred, skip)
+        h_pred, frame_carry = self.frame_lstm(frame_in, carry.frame, fused)
+        x_pred = self.decoder(h_pred, skip, stats)
 
         out = {"x_pred": x_pred, "skip": skip, "curr_skip": curr_skip,
-               "mu": mu, "logvar": logvar, "mu_p": mu_p, "logvar_p": logvar_p}
+               "mu": mu, "logvar": logvar, "mu_p": mu_p, "logvar_p": logvar_p,
+               "bn_stats": stats}
         return out, Carry(frame_carry, prior_carry, post_carry)
 
 
 @torch.no_grad()
-def init(cfg: Config, seed: int = 0, device="cuda") -> SVG:
-    """A randomly initialised SVG model on `device`, in inference mode,
-    with the reference's SVG init (reference:
-    src/prediction/models/base.py:26-35): weights N(0, 0.02), biases 0,
-    BatchNorm scale N(1, 0.02), drawn on the CPU from `seed` in float32 and
-    copied into each parameter's own type and device."""
-    model = SVG(cfg, device=resolve_device(device))
+def init(cfg: Config, seed: int = 0, device="cuda", train: bool = False) -> SVG:
+    """A randomly initialised SVG model on `device` with the reference's
+    SVG init (reference: src/prediction/models/base.py:26-35): weights
+    N(0, 0.02), biases 0, BatchNorm scale N(1, 0.02), drawn on the CPU from
+    `seed` in float32 and copied into each parameter's own type and device.
+    In inference mode (no grad, weights in the compute dtype) unless
+    `train`: then float32 parameters that require grad."""
+    model = SVG(cfg, device=resolve_device(device),
+                param_dtype=torch.float32 if train else None)
     gen = torch.Generator().manual_seed(seed)
 
     def normal(p, mean=0.0, std=0.02):
@@ -178,6 +210,8 @@ def init(cfg: Config, seed: int = 0, device="cuda") -> SVG:
         elif isinstance(m, BatchNorm):
             normal(m.weight, mean=1.0)
             m.bias.zero_()
+    if train:
+        return model.train()
     return model.eval().requires_grad_(False)
 
 

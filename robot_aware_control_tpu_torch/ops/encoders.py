@@ -1,11 +1,15 @@
 """VGG-style conv encoder/decoder for 48x64 / 64x64 frames, NHWC
 (counterpart of `robot_aware_control_tpu/ops/encoders.py:conv_encoder` and
 `conv_decoder`; reference: src/prediction/models/vgg_64.py:87-129,
-196-241)."""
+196-241). Given a `stats` list their BatchNorms run in train mode and
+append their updates to it (ops/nn.py); without one they use the running
+statistics, as the JAX functions' `train` argument selects."""
 
 from __future__ import annotations
 
 import torch
+from typing import Optional
+
 from torch import nn
 
 from robot_aware_control_tpu_torch.ops import nn as N
@@ -23,12 +27,12 @@ class ConvEncoder(nn.Module):
         # final vgg layer 512 -> g_dim completes c4 (reference: vgg_64.py:115-119)
         self.c4_out = N.VGGLayer(512, g_dim, dtype, device)
 
-    def forward(self, x):
+    def forward(self, x, stats: Optional[list] = None):
         """x (B, H, W, nc) -> (feat (B, H/8, W/8, g), skips [h1, h2, h3, h4])."""
-        h1 = self.c1(x)
-        h2 = self.c2(N.max_pool2(h1))
-        h3 = self.c3(N.max_pool2(h2))
-        h4 = self.c4_out(self.c4_head(N.max_pool2(h3)))
+        h1 = self.c1(x, stats)
+        h2 = self.c2(N.max_pool2(h1), stats)
+        h3 = self.c3(N.max_pool2(h2), stats)
+        h4 = self.c4_out(self.c4_head(N.max_pool2(h3), stats), stats)
         return h4, [h1, h2, h3, h4]
 
 
@@ -44,10 +48,10 @@ class ConvDecoder(nn.Module):
         # ConvTranspose2d(64, nc, 3, 1, 1) with stride 1 == SAME 3x3 conv
         self.out = N.Conv2d(64, nc, 3, dtype=dtype, device=device)
 
-    def forward(self, vec, skips):
+    def forward(self, vec, skips, stats: Optional[list] = None):
         h1, h2, h3, _ = skips
-        d2 = self.upc2(vec)
-        d3 = self.upc3(torch.cat([N.upsample_nearest2(d2), h3], -1))
-        d4 = self.upc4(torch.cat([N.upsample_nearest2(d3), h2], -1))
-        d5 = self.upc5(torch.cat([N.upsample_nearest2(d4), h1], -1))
+        d2 = self.upc2(vec, stats)
+        d3 = self.upc3(torch.cat([N.upsample_nearest2(d2), h3], -1), stats)
+        d4 = self.upc4(torch.cat([N.upsample_nearest2(d3), h2], -1), stats)
+        d5 = self.upc5(torch.cat([N.upsample_nearest2(d4), h1], -1), stats)
         return torch.sigmoid(self.out(d5))

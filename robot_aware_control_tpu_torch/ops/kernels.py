@@ -15,9 +15,13 @@ Two kernels replace the JAX package's two Pallas kernels
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback from one to the
-other. The sources are compiled with nvcc into plain-C shared libraries on
-first use (into `_build/` beside this package, keyed by the source's hash)
-and loaded with ctypes. Every launch adds one to `launches[<name>]`.
+other. The kernels have no backward: their outputs are written through raw
+pointers and carry no autograd node, so on CUDA tensors a wrapper raises
+when autograd is recording and an input requires grad, instead of
+returning outputs that would silently cut the gradient. The sources are
+compiled with nvcc into plain-C shared libraries on first use (into
+`_build/` beside this package, keyed by the source's hash) and loaded with
+ctypes. Every launch adds one to `launches[<name>]`.
 """
 
 from __future__ import annotations
@@ -160,6 +164,16 @@ def _check(cond: bool, msg: str):
         raise ValueError(msg)
 
 
+def _check_no_grad(name: str, *tensors):
+    """Raises when autograd would record the call: the kernels have no
+    backward, and their outputs would silently cut the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            "tensors that do not require grad (training takes the autograd "
+            "path, ops/lstm.py:conv_lstm_cell_autograd)")
+
+
 def _check_err(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
@@ -233,6 +247,7 @@ def capsule_mask_render(segs: torch.Tensor, h: int, w: int) -> torch.Tensor:
     if segs.device.type == "cpu":
         return capsule_mask_render_plain(segs, h, w)
     _check(segs.is_cuda, f"unsupported device {segs.device}")
+    _check_no_grad("capsule_mask_render", segs)
     _check(segs.dtype == torch.float32, f"segs must be float32, got {segs.dtype}")
     _check(segs.is_contiguous(), "segs must be contiguous")
     _check(h > 0 and w > 0 and h * w < 2 ** 31, f"bad mask size {h}x{w}")
@@ -292,6 +307,7 @@ def _check_cell(x, h, c, w, b):
 
 def _check_cuda_cell(x, h, c, w, b):
     _check(x.is_cuda, f"unsupported device {x.device}")
+    _check_no_grad("conv_lstm_cell", x, h, c, w, b)
     _check(all(t.device == x.device for t in (h, c, w, b)),
            "all inputs must be on one device")
     _check(x.dtype in _CELL_FN and h.dtype == c.dtype == w.dtype == x.dtype,

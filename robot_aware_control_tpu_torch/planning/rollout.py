@@ -168,7 +168,7 @@ class RolloutEngine:
             out, carry = _model_step(
                 cfg, model, carry, model_in, m_in, r_in, hm_in,
                 actions_tna[t], generator, sample_mean=cfg.sample_mean)
-            curr = composite(out["x_pred"], curr).to(self.dtype)
+            curr = composite(cfg, out["x_pred"], curr).to(self.dtype)
             rewards.append(self.cost(
                 curr, goal_imgs[t], curr_mask=masks[t + 1],
                 goal_mask=goal_masks[t],

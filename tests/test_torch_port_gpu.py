@@ -14,8 +14,17 @@ from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
+from robot_aware_control_tpu_torch.training.step import make_eval_step
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 from torch_mask_cases import MASK_CASES, mask_case
+from torch_train_small import (
+    EVAL_TOL,
+    GRAD_TOL_DEVICES,
+    TRAIN_SMALL,
+    bench_batch,
+    eval_kernel_vs_plain,
+    train_step_parity,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -101,10 +110,12 @@ def test_gpu_cell_kernel_matches_plain(cuda, monkeypatch, dtype, tol,
 # Cx != C catches misplaced B tiles; C = 40 a partial 64-channel tile; B = 3
 # and 13 a batch run (16 entries) that TMA fills past the end; 5x7 maps a
 # row narrower than the 8-column box; k = 5 on 5 or 6 rows skips row taps
-# at the border; the last case is the planner's cell0
+# at the border; then the planner's cell0 (B = 100) and the trainer's eval
+# cells (B = 16: 24 output tiles, another stream-K split)
 @pytest.mark.parametrize("B,H,W,Cx,C,k", [
     (3, 6, 8, 64, 128, 5), (13, 5, 7, 64, 128, 3), (13, 6, 8, 40, 40, 3),
-    (3, 5, 7, 24, 40, 5), (13, 5, 7, 128, 64, 5), (100, 6, 8, 256, 256, 5)])
+    (3, 5, 7, 24, 40, 5), (13, 5, 7, 128, 64, 5), (100, 6, 8, 256, 256, 5),
+    (16, 6, 8, 256, 256, 5), (16, 6, 8, 256, 256, 3)])
 def test_gpu_sm90_cell_matches_plain(cuda, B, H, W, Cx, C, k):
     """The wgmma/TMA kernel to one bf16 rounding step (1e-2 absolute and
     relative), launched once per call."""
@@ -175,3 +186,60 @@ def test_gpu_small_plan_goes_through_both_kernels(cuda, monkeypatch):
     assert launched == {"conv_lstm_cell": 16, "conv_lstm_cell_sm90": 0,
                         "capsule_mask_render": 2}
     np.testing.assert_allclose(plans["cuda"], plans["cpu"], atol=1e-4)
+
+
+# ---------------------------------------------------------------- training
+def test_gpu_train_step_matches_cpu(cuda, monkeypatch):
+    """One small float32 train step and one eval step, same weights,
+    window and draws, GPU against CPU (torch_train_small.py): loss,
+    metrics, BatchNorm statistics and eval outputs to 1e-4; gradients to
+    GRAD_TOL_DEVICES of each leaf's norm; no kernel in the train step, the
+    eval step's cells through the float32 kernel."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    errs, _ = train_step_parity(cuda)
+    assert errs["grads_norm"] <= GRAD_TOL_DEVICES
+
+
+def test_gpu_bf16_eval_step_takes_sm90(cuda):
+    """A bf16 eval step from float32 training weights: every cell launch
+    (6 a model step) through the wgmma/TMA kernel, finite metrics."""
+    cfg = Config(**TRAIN_SMALL).replace(compute_dtype="bfloat16")
+    model = svg.init(cfg, 3, cuda, train=True)
+    before = dict(kernels.launches)
+    per_step, preds = make_eval_step(cfg, model)(
+        bench_batch(cfg.replace(n_future=cfg.n_eval - 1), 2, 2, cuda),
+        torch.Generator(cuda).manual_seed(0))
+    cells = 6 * (cfg.n_eval - 1)
+    assert kernels.launches["conv_lstm_cell"] - before["conv_lstm_cell"] == cells
+    assert (kernels.launches["conv_lstm_cell_sm90"]
+            - before["conv_lstm_cell_sm90"] == cells)
+    assert preds.shape == (3, 2, 48, 64, 3)
+    assert all(bool(torch.isfinite(v).all()) for v in per_step.values())
+
+
+def test_gpu_full_width_eval_step_kernel_matches_plain(cuda):
+    """The trainer's eval step at full width (g_dim 256, B = 16, bf16),
+    autoregressive and one-step: with the cell kernel, every launch
+    through sm90, against the same step with its plain version, to
+    EVAL_TOL of the predictions' and metrics' max."""
+    result = eval_kernel_vs_plain(cuda)
+    assert max(r["preds"] for r in result.values()) <= EVAL_TOL
+
+
+def test_gpu_kernels_refuse_autograd(cuda):
+    """Under autograd with an input that requires grad, the wrappers raise
+    rather than return outputs with no gradient; under no_grad they run."""
+    x, h, c, w, b = _cell_args(cuda, torch.float32, 1, 6, 8, 8, 8, 3)
+    w.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.conv_lstm_cell(x, h, c, w, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.conv_lstm_cell_wmma(x.bfloat16(), h.bfloat16(), c.bfloat16(),
+                                    w.bfloat16(), b)
+    segs, hh, ww = mask_case("planner_500", cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.capsule_mask_render(segs.requires_grad_(True), hh, ww)
+    with torch.no_grad():
+        kernels.conv_lstm_cell(x, h, c, w, b)
+        kernels.capsule_mask_render(segs, hh, ww)
