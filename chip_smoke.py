@@ -9,14 +9,16 @@ Phases, each of which raises on failure:
                 with each cell kernel's registers and spills from ptxas);
   3. masks      capsule-mask kernel == its plain version, bit for bit, on
                 the cases of tests/torch_mask_cases.py that the GPU tests
-                run: 500 planner poses through the port's renderer, other
+                run: 500 planner poses through the port's renderer and
+                2000 (four requests planned together), other
                 counts and sizes (M = 1, 37 and 0; S = 1, 8 and 13; 48x64,
                 48x62 whose rows take 4-byte stores, and 5x7), capsules off
                 the image, degenerate, with zero and negative radii, covering
                 the image, near +-1e6, ending on a tile's edge, non-finite;
   4. cell       the ConvLSTM-cell kernels vs their plain version at the
-                planner's shapes (B=100, 6x8, Cx=C=256, k=5 and k=3) and the
-                trainer's eval shapes (B=16, the same otherwise): in bf16
+                planner's shapes (B=100, 6x8, Cx=C=256, k=5 and k=3), the
+                trainer's eval shapes (B=16, the same otherwise) and those
+                of 2 and 4 requests planned together (B=200, 400): in bf16
                 the wgmma/TMA kernel both take and the WMMA kernel it
                 replaced, and the float32 kernel; then small odd shapes;
   5. parity     a small float32 CEM plan on the GPU (kernels) equals the
@@ -55,11 +57,31 @@ Phases, each of which raises on failure:
                 PyTorch) and its registers and spills; for the cell per
                 planner shape also the WMMA kernel's time on the same
                 inputs (the kernel it
-                replaced), the GFLOP it multiplies, and its stream-K schedule
-                (tiles, k-steps, blocks in clusters of two, waves, fill).
+                replaced), the GFLOP it multiplies, and its schedule
+                (tiles, k-steps, blocks in clusters of two, waves, fill,
+                workspace); the cell is also timed at B = 16, 200 and 400;
+ 10. serve      plan serving (control/plan_server.py) at the planning
+                config of phase 6: the cell kernel returns identical bits
+                over 50 launches of identical inputs at B = 16, 100, 200
+                and 400 (k = 5 and 3), and for rows of a B = 100 launch
+                placed at offsets 0 and 100 of B = 200 launches and 0, 100,
+                200 and 300 of B = 400 launches (the WMMA
+                and float32 kernels too, at small shapes); one request
+                planned 3 times gives one plan, and get_action_batched of
+                R = 2, 3 (padded to 4) and 4 requests equals their single
+                plans bit for bit; a batched plan of 4 requests launches
+                the cell 160 times, all through sm90 at B = 400, and the
+                mask kernel 10 times; one profiled batched plan; then a
+                PlanServer on a thread at 127.0.0.1, port 0: one request
+                twice, then 3 rounds of 1 client and of 4 concurrent
+                clients with distinct requests, every served plan equal to
+                its local plan, a micro-batch seen, the launches of the
+                served plans counted (160 cells a plan program, all sm90,
+                10 masks); latency per request at 1 and 4 clients and plans
+                per second at 4 (medians of the 3 rounds).
 
-Prints the card line, one JSON line of the train phase and one of
-kernels, then, as the last line,
+Prints the card line, one JSON line each of the train and serve phases and
+one of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
@@ -80,6 +102,7 @@ import torch.nn.functional as F
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.ops import kernels
+from robot_aware_control_tpu_torch.control.plan_server import PlanServer
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.training import checkpoint as ckpt
 from robot_aware_control_tpu_torch.training.step import make_train_step
@@ -90,6 +113,13 @@ from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from torch_mask_cases import MASK_CASES, mask_case  # noqa: E402
+from torch_serve_cases import (  # noqa: E402
+    cell_invariance,
+    plan_checks,
+    requests,
+    serve_checks,
+    small_cell_invariance,
+)
 from torch_train_small import (  # noqa: E402
     EVAL_TOL,
     GRAD_TOL_DEVICES,
@@ -126,8 +156,10 @@ CELL_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell_sm90.cu"
 CELL_REPLACES = "robot_aware_control_tpu/ops/pallas_kernels.py:146"
 PLANNER_CELLS = [(100, 6, 8, 256, 256, 5), (100, 6, 8, 256, 256, 3)]
 # the trainer's eval epoch: B = test_batch_size = 16, 24 output tiles
-# for 132 persistent blocks, another stream-K split than the planner's
+# for 132 persistent blocks
 EVAL_CELLS = [(16, 6, 8, 256, 256, 5), (16, 6, 8, 256, 256, 3)]
+# two and four requests planned together: B = 2 x 100 and 4 x 100
+SERVE_CELLS = [(B, 6, 8, 256, 256, k) for B in (200, 400) for k in (5, 3)]
 
 
 def cuda_ms(fn, n: int = 20, sleep_cycles: int = 200_000_000) -> float:
@@ -202,20 +234,20 @@ def check_cells(dev):
     # the planner's two cells, the trainer's eval cells, then odd shapes:
     # 24/40 channels take the wgmma/TMA kernel in bf16 (a partial channel
     # tile, a 5x7 map), 13/20 the WMMA kernel's element-wise loads
-    shapes = PLANNER_CELLS + EVAL_CELLS + [(3, 5, 7, 24, 40, 5),
-                                           (2, 6, 8, 13, 20, 3)]
+    shapes = PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS + [
+        (3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3)]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             args = cell_inputs(*shape, dtype, dev, seed=sum(shape))
             want = kernels.conv_lstm_cell_plain(*args)
             tol = CELL_TOL[dtype]
             sm90 = kernels.takes_sm90(*args[:4])
-            if (dtype == torch.bfloat16 and shape in PLANNER_CELLS + EVAL_CELLS
-                    and not sm90):
+            if (dtype == torch.bfloat16 and not sm90
+                    and shape in PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS):
                 raise AssertionError(f"{shape} bf16 does not take sm90")
             runs = {"sm90" if sm90 else "wmma" if dtype == torch.bfloat16
                     else "f32": kernels.conv_lstm_cell}
-            if sm90:
+            if sm90 and shape not in SERVE_CELLS:
                 runs["wmma"] = kernels.conv_lstm_cell_wmma
             for path, fn in runs.items():
                 before = kernels.launches["conv_lstm_cell_sm90"]
@@ -284,23 +316,24 @@ def canonical_plans(n_timed: int = 3):
     launches = dict(kernels.launches)
     rollouts = cfg.opt_iter * cfg.action_candidates
     print("plan seconds: " + ", ".join(f"{s:.4f}" for s in seconds))
+    latency = float(np.median(seconds))
     print(f"plan latency {np.median(seconds):.4f} s (median of {n_timed}), "
           f"{rollouts / np.median(seconds):.1f} rollouts/s "
           f"({cfg.opt_iter} iterations x {cfg.action_candidates} candidates, "
           f"horizon {cfg.horizon}); kernel launches per plan {want}")
-    return launches, policy, start, goal
+    return launches, policy, start, goal, latency
 
 
-def profile_plan(policy, start, goal):
-    """One plan under torch.profiler: device time by kernel, and the share
-    of the plan's wall time in which the device was busy (one stream, so
-    kernel times add up without overlap)."""
+def profile_plan(plan, label="plan"):
+    """`plan()` under torch.profiler: device time by kernel, and the share
+    of its wall time in which the device was busy (one stream, so kernel
+    times add up without overlap). Returns (busy ms, wall ms) or None."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        policy.get_action(start, goal, ep_num=2, step=0)
+        plan()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
@@ -309,12 +342,100 @@ def profile_plan(policy, start, goal):
                   reverse=True)
     busy = sum(r[0] for r in rows)
     if not busy:
-        print("profiler recorded no device time: device busy share not measured")
-        return
-    print(f"profiled plan: {wall:.1f} ms wall (profiler on), device busy "
+        print(f"profiler recorded no device time: {label} busy share not "
+              "measured")
+        return None
+    print(f"profiled {label}: {wall:.1f} ms wall (profiler on), device busy "
           f"{busy:.1f} ms = {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.2f} ms {ms / busy:6.1%} {n:5d}x  {key[:100]}")
+    return busy, wall
+
+
+# ----------------------------------------------------------------- serve
+def check_serve(local_latency):
+    """The cell kernel's invariance, batched == single plans at the
+    canonical config, the launches of a batched plan, a profiled batched
+    plan, and a PlanServer with concurrent clients
+    (tests/torch_serve_cases.py)."""
+    dev = torch.device("cuda")
+    inv = cell_invariance(dev)
+    small = small_cell_invariance(dev)
+    print("cell kernel, identical bits: 50 launches of identical inputs at "
+          "B = 16, 100, 200 and 400, and rows of B = 100 at offsets 0 and "
+          "100 of B = 200 and 0, 100, 200 and 300 of B = 400, for k = 5 and "
+          "3; also " + ", ".join(small) + " at small shapes")
+    cfg = Config(**CANONICAL)
+    model = svg.init(cfg, seed=0, device="cuda")
+    policy = CEMPolicy(cfg, model)
+    checks = plan_checks(policy)
+    print("canonical plans: one request 3 times, one plan; batched == single "
+          "bit for bit at R = " + ", ".join(map(str, checks["batched"]))
+          + " (3 padded to 4)")
+
+    # one batched plan of 4 requests: its cells all run at B = 400
+    reqs = requests(4)
+    batched = lambda: policy.get_action_batched(
+        [r[0] for r in reqs], [r[1] for r in reqs],
+        ep_nums=[r[2] for r in reqs], steps=[r[3] for r in reqs])
+    cell, rows = kernels.conv_lstm_cell, []
+
+    def recording(x, *args):
+        rows.append(x.shape[0])
+        return cell(x, *args)
+
+    kernels.conv_lstm_cell = recording
+    try:
+        kernels.reset_launches()
+        batched()
+        launched = dict(kernels.launches)
+    finally:
+        kernels.conv_lstm_cell = cell
+    cells = 4 * (cfg.horizon - 1) * cfg.opt_iter
+    want = {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
+            "capsule_mask_render": cfg.opt_iter}
+    if launched != want or set(rows) != {4 * cfg.action_candidates}:
+        raise AssertionError(f"batched plan of 4 launched {launched} at B = "
+                             f"{sorted(set(rows))}, expected {want} at 400")
+    print(f"batched plan of 4 requests: launches {launched}, every cell at "
+          f"B = {rows[0]}")
+    prof = profile_plan(batched, "batched plan of 4 requests")
+
+    server = PlanServer(cfg, model)
+    thread = server.start()
+    try:
+        kernels.reset_launches()
+        served = serve_checks(server, checks["singles"])
+        served_launches = dict(kernels.launches)
+        info = server.info()
+    finally:
+        server.close()
+        thread.join(timeout=10)
+    programs = served["plan_programs"]
+    want = {"conv_lstm_cell": cells * programs,
+            "conv_lstm_cell_sm90": cells * programs,
+            "capsule_mask_render": cfg.opt_iter * programs}
+    if served_launches != want:
+        raise AssertionError(f"served plans launched {served_launches}, "
+                             f"expected {want} for {programs} plan programs")
+    print(f"served: {served['requests']} requests in {programs} plan "
+          f"programs (batches seen {served['batched_seen']}), launches "
+          f"{served_launches}; every served plan equals its local plan")
+    print(f"serving latency per request: local single plan "
+          f"{local_latency:.4f} s; served, 1 client "
+          f"{served['latency_1_client_s']:.4f} s (runs "
+          + ", ".join(f"{v:.4f}" for v in served["latency_1_client_runs"])
+          + f"), 4 concurrent clients {served['latency_4_clients_s']:.4f} s; "
+          f"{served['plans_per_s_4_clients']:.2f} plans/s at 4 clients (runs "
+          + ", ".join(f"{v:.2f}" for v in served["plans_per_s_runs"]) + ")")
+    out = dict(served, info=info, launches=served_launches,
+               batched_plan_launches=launched, invariance=inv,
+               small_invariance=small, batched_diff=checks["batched"],
+               local_single_plan_s=local_latency)
+    if prof:
+        out["batched_plan_busy_ms"], out["batched_plan_wall_ms"] = prof
+        out["batched_plan_busy_share"] = prof[0] / prof[1]
+    return out
 
 
 # ---------------------------------------------------------------- timing
@@ -409,18 +530,22 @@ def time_cell(dev, launches, errs):
     """The planner launches cell0 (k=5) and cell1 (k=3) equally often, so
     the per-launch numbers are the mean of the two shapes. The WMMA kernel
     the planner took before runs on the same inputs in the same call. The
-    trainer's eval shapes (B = 16) are timed too, and reported apart."""
+    trainer's eval shapes (B = 16) and those of 2 and 4 requests planned
+    together (B = 200 and 400) are timed and reported apart."""
     rows = []
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for shape in PLANNER_CELLS + EVAL_CELLS:
+    for shape in PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS:
         B, H, W, Cx, C, k = shape
         x, h, c, w, b = cell_inputs(B, H, W, Cx, C, k, torch.bfloat16, dev, 7)
-        # turns: WMMA, wgmma, wgmma, WMMA
-        wmma = [cuda_ms(lambda: kernels.conv_lstm_cell_wmma(x, h, c, w, b))]
-        ms = [cuda_ms(lambda: kernels.conv_lstm_cell(x, h, c, w, b))
-              for _ in range(2)]
-        wmma.append(cuda_ms(lambda: kernels.conv_lstm_cell_wmma(x, h, c, w, b)))
-        plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(x, h, c, w, b))
+        run = lambda fn: (lambda: fn(x, h, c, w, b))
+        ms = [cuda_ms(run(kernels.conv_lstm_cell)) for _ in range(2)]
+        wmma = []
+        if shape in PLANNER_CELLS:  # turns: WMMA, wgmma, WMMA
+            wmma = [cuda_ms(run(kernels.conv_lstm_cell_wmma)),
+                    cuda_ms(run(kernels.conv_lstm_cell)),
+                    cuda_ms(run(kernels.conv_lstm_cell_wmma))]
+            ms.append(wmma.pop(1))
+        plain = cuda_ms(run(kernels.conv_lstm_cell_plain))
         xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)  # channels-last NCHW
         w_oihw = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
@@ -434,31 +559,39 @@ def time_cell(dev, launches, errs):
         multiplied = s["steps"] * 2.0 * 128 * 256 * 64
         per_block = -(-s["steps"] // s["grid"])
         row = dict(B=B, k=k, ms=float(np.mean(ms)), ms_runs=ms,
-                   wmma_ms=float(np.mean(wmma)), wmma_ms_runs=wmma,
-                   plain_ms=plain, library_ms=lib, bound_ms=bound,
-                   bound_by=by, gflop=ops / 1e9,
+                   wmma_ms=float(np.mean(wmma)) if wmma else None,
+                   wmma_ms_runs=wmma, plain_ms=plain, library_ms=lib,
+                   bound_ms=bound, bound_by=by, gflop=ops / 1e9,
                    gflop_multiplied=multiplied / 1e9,
                    gflop_dense=2.0 * B * H * W * k * k * (Cx + C) * 4 * C / 1e9,
                    tiles=s["tiles"], blocks=s["grid"], steps=s["steps"],
-                   waves=s["grid"] / sms,
+                   slots=s["slots"], waves=s["grid"] / sms,
                    fill=s["steps"] / (s["grid"] * per_block),
                    max_abs_err=errs[(shape, "sm90")])
         rows.append(row)
         print(f"cell B={B} k={k} bf16: wgmma/TMA kernel {row['ms']:.4f} ms "
-              f"({', '.join(f'{v:.4f}' for v in ms)}), WMMA kernel "
-              f"{row['wmma_ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in wmma)}), "
-              f"plain {plain:.4f} ms, cuDNN gate conv {lib:.4f} ms, bound "
+              f"({', '.join(f'{v:.4f}' for v in ms)}), "
+              + (f"WMMA kernel {row['wmma_ms']:.4f} ms "
+                 f"({', '.join(f'{v:.4f}' for v in wmma)}), " if wmma else "")
+              + f"plain {plain:.4f} ms, cuDNN gate conv {lib:.4f} ms, bound "
               f"{bound:.4f} ms ({by}, {row['gflop']:.1f} GFLOP without the "
               f"zero border, {row['gflop_dense']:.1f} dense, "
               f"{row['gflop_multiplied']:.1f} multiplied = "
               f"{multiplied / row['ms'] / 1e9:.0f} TFLOP/s); {s['tiles']} "
               f"tiles, {s['steps']} k-steps on {s['grid']} blocks over {sms} "
-              f"SMs ({row['waves']:.2f} waves, fill {row['fill']:.4f})")
+              f"SMs ({row['waves']:.2f} waves, fill {row['fill']:.4f}), "
+              f"{s['slots']} workspace slots of 128 KB")
     ptxas = ptxas_info("conv_lstm_cell_sm90")
     print("ptxas, wgmma/TMA kernel: " + ptxas)
     print("ptxas, conv_lstm_cell.cu: " + ptxas_info("conv_lstm_cell"))
-    plan, ev = rows[:len(PLANNER_CELLS)], rows[len(PLANNER_CELLS):]
+    n = len(PLANNER_CELLS)
+    plan = rows[:n]
     mean = lambda key, rs=plan: sum(r[key] for r in rs) / len(rs)
+    apart = lambda rs: dict(
+        B=rs[0]["B"], ms=mean("ms", rs), bound_ms=mean("bound_ms", rs),
+        plain_ms=mean("plain_ms", rs), library_ms=mean("library_ms", rs),
+        max_abs_err=max(r["max_abs_err"] for r in rs))
+    by_b = lambda B: apart([r for r in rows if r["B"] == B])
     return dict(name="conv_lstm_cell_sm90", route="cuda", source=CELL_SRC,
                 replaces=CELL_REPLACES, launches=launches,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -466,10 +599,9 @@ def time_cell(dev, launches, errs):
                 bound_ms=mean("bound_ms"),
                 bound_by=rows[0]["bound_by"], library_ms=mean("library_ms"),
                 wmma_ms=mean("wmma_ms"), ptxas=ptxas, per_shape=rows,
-                eval_shapes=dict(ms=mean("ms", ev), bound_ms=mean("bound_ms", ev),
-                                 plain_ms=mean("plain_ms", ev),
-                                 library_ms=mean("library_ms", ev),
-                                 max_abs_err=max(r["max_abs_err"] for r in ev)))
+                eval_shapes=by_b(EVAL_CELLS[0][0]),
+                serve_shapes=[by_b(B) for B in
+                              sorted({shape[0] for shape in SERVE_CELLS})])
 
 
 # ----------------------------------------------------------------- train
@@ -671,14 +803,20 @@ def main() -> int:
     check_small_plan_parity()
 
     phase("plan")
-    launches, policy, start, goal = canonical_plans()
+    launches, policy, start, goal, latency = canonical_plans()
     phase("profile")
-    profile_plan(policy, start, goal)
+    profile_plan(lambda: policy.get_action(start, goal, ep_num=2, step=0))
     phase("kernels")
     line = {"kernels": [
         time_mask(dev, launches["capsule_mask_render"], mask_err),
         time_cell(dev, launches["conv_lstm_cell_sm90"], cell_errs),
     ]}
+    phase("serve")
+    serve = check_serve(latency)
+    for entry, name in zip(line["kernels"],
+                           ("capsule_mask_render", "conv_lstm_cell_sm90")):
+        entry["launches_serve"] = serve["launches"][name]
+    print(json.dumps({"serve": dict(serve, card=card)}))
 
     # training: the train step runs no hand kernel; the trainer's eval
     # epoch runs the cell kernel

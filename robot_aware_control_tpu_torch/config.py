@@ -1,7 +1,8 @@
 """Run configuration for the PyTorch port.
 
 A copy of the fields of `robot_aware_control_tpu.config.Config` that the
-port reads (the CEM planner, the train and eval steps and the trainer),
+port reads (the CEM planner and its server, the controller, the train and
+eval steps and the trainer),
 with the same names and defaults, so a config written for one package
 means the same thing in the other; and a copy of its argparse front end
 (`create_parser`, `argparser`), so the port's trainer takes the same
@@ -33,6 +34,8 @@ class Config:
     seed: int = 0
     experiment: str = "train_robonet"
     modified: bool = False  # the longer-forearm locobot variant
+    # the task env; picks the plan server's CEM variant (control/plan_server.py)
+    env: str = "FetchPush"  # FetchPush|LocobotTable|LocobotPick
 
     # --- prediction / SVG ---
     lr: float = 0.0003
@@ -76,6 +79,12 @@ class Config:
     # the hand-written ConvLSTM cell kernel on inference paths (planning,
     # eval); training runs the autograd cell (the kernel has no backward)
     fused_lstm: bool = True
+    # int8 planning path (none|int8); only "none" is ported
+    plan_quantize: str = "none"
+    # planning-as-a-service endpoint (control/plan_server.py): one warm
+    # planner on the GPU host, robot clients over TCP
+    plan_server_host: str = "127.0.0.1"
+    plan_server_port: int = 0
     sharded_checkpoint: bool = False
     sample_mean: bool = False
     # the reference's posterior re-encodes the current frame; False keeps
@@ -93,9 +102,22 @@ class Config:
     opt_iter: int = 10
     action_candidates: int = 30
     topk: int = 5
+    replan_every: int = 1
+    # a checkpoint (ckpt_<step>.npz) whose model the plan server loads
+    dynamics_model_ckpt: Optional[str] = None
     candidates_batch_size: int = 200
+    # save top-K rollout gifs of each plan (not ported: raises)
+    debug_cem: bool = False
+    # seed the CEM mean from the demo's actions (opt_traj) when given
+    demo_cost: bool = False
     cem_init_std: float = 1.0
+    # pick CEM, demo-seeded: False (default) keeps exploration local around
+    # the demo seed; True applies the reference's unseeded wide-x scheme
+    # (pick/cem.py:66-74 x-std 0.2, gripper std 0.005) even when seeded
+    pick_wide_x_std: bool = False
     sparse_cost: bool = False
+    # execute the whole plan before replanning (visual MPC controller)
+    cem_open_loop: bool = False
     cem_prediction_use_thick_mask: bool = True
     # metres of eef displacement per unit planner action
     eef_action_scale: float = 1.0
@@ -105,6 +127,9 @@ class Config:
     world_cost_weight: float = 1.0
     img_cost_threshold: Optional[float] = None
     img_cost_world_norm: bool = True
+
+    # --- envs and control ---
+    max_episode_length: int = 10
 
     # --- port of the JAX package's additions ---
     # activations and conv weights at use; BatchNorm, LSTM biases and a
@@ -116,6 +141,12 @@ class Config:
     # step, "conv" all but the convolutions' outputs
     remat: bool = False
     remat_policy: str = "full"  # full|conv
+
+    def __post_init__(self):
+        if self.plan_quantize != "none":
+            raise NotImplementedError(
+                f"plan_quantize={self.plan_quantize!r}: int8 planning is not "
+                "ported yet (ROADMAP.md, section 1 item 5); use 'none'")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

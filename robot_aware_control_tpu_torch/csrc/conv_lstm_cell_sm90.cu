@@ -50,18 +50,36 @@
 //     between those registers and device memory; the tile's bias is staged
 //     in shared memory once, and sigmoid and tanh use the approximate
 //     exponential and reciprocal (the precise ones cost 12-16 us a launch).
-//   * Filling the 132 SMs: stream-K over clusters of two blocks, one block
-//     an SM. A cluster's unit of work is one M tile in two neighbouring
-//     hidden-channel tiles, one a block. The launch's units (84 at the
-//     planner's shapes, 13440 k-steps at k = 5, 5376 at k = 3, a k-step
-//     being one tap of 64 channels) are dealt out evenly to 66 persistent
-//     clusters, 203.6 / 81.5 k-steps a block: one wave, full to within one
-//     step. A tile cut between clusters is finished by the block of its
-//     rank that arrives last: the others leave float32 partials (128 KB) in
-//     a workspace and count themselves done on a per-tile counter, both
-//     allocated by the caller; the last adds them to its registers and
-//     applies the update. At most two partials per block: at most 34 MB
-//     written and read per launch.
+//   * A result that depends on the inputs alone. A pixel's gates are the
+//     same bits whatever the launch's B, wherever its batch entry sits and
+//     whichever block finishes its tile, so that a CEM plan does not depend
+//     on the other requests planned with it (control/plan_server.py). The
+//     K range of every tile is cut at fixed places, its in-map row taps:
+//     a piece is one row tap dy, its k column taps times all channel chunks
+//     of x and h (k * nch k-steps, 40 at k = 5 and 24 at k = 3 on 256 + 256
+//     channels). Where a cut falls depends on k, Cx, C and the pixel's row
+//     (which taps lie in the map), never on B or on the tile's index. Each
+//     piece is summed from zero in float32, and a tile's pieces are added
+//     in piece order, p0 + p1 + ... left to right, by whichever block comes
+//     last, its own piece taken from its registers at its place in the
+//     order. The cut is a row tap so that small launches still fill the
+//     card: at B = 16 (k = 5) the launch has 48 pieces a block rank, one
+//     wave on 66 clusters; at B = 100, 336 (5.1 a cluster); at B = 400,
+//     1200. Halves of a tile's taps instead would leave B = 16 with 24
+//     pieces (about 4x slower); whole tiles (no cut) B = 100 with 84 units
+//     on 66 clusters, two waves. The price is workspace traffic: every
+//     piece but the finisher's own leaves a 128 KB partial of each block,
+//     also where one block computes a tile's pieces one after another. At
+//     k = 5 that is 66 MB written and read back at B = 100, 236 MB at
+//     B = 400.
+//   * Filling the 132 SMs: clusters of two blocks, one block an SM. A
+//     cluster's unit of work is one M tile in two neighbouring hidden-channel
+//     tiles, one a block; the launch's pieces are dealt out evenly to the
+//     persistent clusters, a contiguous run each. A tile cut between blocks
+//     is finished by the block of its rank that arrives last: the others
+//     leave float32 partials (128 KB) in a workspace slot of their own and
+//     count themselves done on a per-tile counter, both allocated by the
+//     caller.
 //   * Traffic from L2: the two blocks of a cluster share their A tile, each
 //     loading half of it and multicasting it to both (.multicast::cluster);
 //     a stage is freed only when the consumers of both blocks are done with
@@ -98,9 +116,19 @@ constexpr int kBGateBytes = BK * BN * 2;
 constexpr int kStageBytes = kABytes + 4 * kBGateBytes;  // 48 KB
 constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 constexpr int kSlotFloats = BM * 4 * BN;  // one tile's float32 partial sums
+// most pieces a tile may be cut into: the finisher keeps their workspace
+// slots in shared memory (make_geom bounds the clusters by it, and the host
+// refuses a k above it)
+constexpr int kMaxPieces = kConsumers;
 
 // ---------------------------------------------------------------------------
-// geometry and stream-K schedule (host and device)
+// geometry and schedule (host and device)
+
+// k-steps [s0, s1) of unit u: the j-th of the unit's n pieces, in the order
+// its partial sums are added
+struct Piece {
+  int u, j, n, s0, s1;
+};
 
 // A cluster of two blocks computes the two hidden-channel tiles nt = 2 np
 // and 2 np + 1 of one M tile: its unit of work. Each block loads half of
@@ -113,8 +141,8 @@ struct Geom {
   int n_xc, n_mb, n_np;  // column chunks, batch chunks, pairs of hidden-channel tiles
   int ncx, nch;          // k-steps a tap takes over x, and over x and h
   int units, clusters;
-  long long row_steps;   // k-steps of the H * n_xc units of one (np, mb)
-  long long total;       // k-steps of the launch's units
+  long long row_work;    // work of the H * n_xc units of one (np, mb), in dealt items
+  long long total;       // work of the launch's units, in dealt items
 
   __host__ __device__ int dy_lo(int y) const { return y < p ? p - y : 0; }
   // row taps of output row y that land inside the map
@@ -122,29 +150,45 @@ struct Geom {
     const int hi = H - 1 - y + p < k - 1 ? H - 1 - y + p : k - 1;
     return hi - dy_lo(y) + 1;
   }
-  __host__ __device__ int unit_steps(int y) const { return nv(y) * k * nch; }
+  __host__ __device__ int tap_steps() const { return k * nch; }
+  // The items dealt are pieces: unit u of output row y is nv(y) of them.
+  __host__ __device__ long long unit_work(int y) const { return nv(y); }
   // units run in the order u = ((np * n_mb + mb) * H + y) * n_xc + xc
   __host__ __device__ long long unit_start(int u) const {
     const int xc = u % n_xc, y = u / n_xc % H, g = u / (n_xc * H);
-    long long s = g * row_steps;
-    for (int yy = 0; yy < y; ++yy) s += static_cast<long long>(unit_steps(yy)) * n_xc;
-    return s + static_cast<long long>(xc) * unit_steps(y);
+    long long s = g * row_work;
+    for (int yy = 0; yy < y; ++yy) s += unit_work(yy) * n_xc;
+    return s + xc * unit_work(y);
   }
   __host__ __device__ int unit_at(long long pos) const {
-    const int g = static_cast<int>(pos / row_steps);
-    long long rem = pos - g * row_steps;
+    const int g = static_cast<int>(pos / row_work);
+    long long rem = pos - g * row_work;
     int y = 0;
-    while (rem >= static_cast<long long>(unit_steps(y)) * n_xc) {
-      rem -= static_cast<long long>(unit_steps(y)) * n_xc;
+    while (rem >= unit_work(y) * n_xc) {
+      rem -= unit_work(y) * n_xc;
       ++y;
     }
-    return (g * H + y) * n_xc + static_cast<int>(rem / unit_steps(y));
+    return (g * H + y) * n_xc + static_cast<int>(rem / unit_work(y));
   }
-  // cluster c takes the k-steps [cluster_lo(c), cluster_lo(c + 1))
+  // cluster c takes the pieces [cluster_lo(c), cluster_lo(c + 1))
   __host__ __device__ long long cluster_lo(int c) const { return c * total / clusters; }
-  __host__ __device__ int cluster_at(long long pos) const {
-    return static_cast<int>(((pos + 1) * clusters + total - 1) / total) - 1;
+  // piece `pos` of the launch: one row tap of its unit
+  __host__ __device__ Piece piece(long long pos) const {
+    Piece pc;
+    pc.u = unit_at(pos);
+    pc.j = static_cast<int>(pos - unit_start(pc.u));
+    pc.n = nv(pc.u / n_xc % H);
+    pc.s0 = pc.j * tap_steps();
+    pc.s1 = pc.s0 + tap_steps();
+    return pc;
   }
+  // workspace slot of piece jj of pc's unit in the block of rank `rank`:
+  // one a piece
+  __host__ __device__ long long slot(const Piece& pc, int jj, int rank) const {
+    return 2 * (unit_start(pc.u) + jj) + rank;
+  }
+  // workspace slots a launch needs
+  __host__ __device__ long long slots() const { return 2 * total; }
 };
 
 Geom make_geom(int B, int H, int W, int Cx, int C, int k, int max_clusters) {
@@ -164,10 +208,11 @@ Geom make_geom(int B, int H, int W, int Cx, int C, int k, int max_clusters) {
   g.ncx = (Cx + BK - 1) / BK;
   g.nch = g.ncx + (C + BK - 1) / BK;
   g.units = g.n_np * g.n_mb * H * g.n_xc;
-  g.row_steps = 0;
-  for (int y = 0; y < H; ++y) g.row_steps += static_cast<long long>(g.unit_steps(y)) * g.n_xc;
-  g.total = g.row_steps * g.n_np * g.n_mb;
-  g.clusters = static_cast<int>(g.total < max_clusters ? g.total : max_clusters);
+  g.row_work = 0;
+  for (int y = 0; y < H; ++y) g.row_work += g.unit_work(y) * g.n_xc;
+  g.total = g.row_work * g.n_np * g.n_mb;
+  const int most = max_clusters < kMaxPieces ? max_clusters : kMaxPieces;
+  g.clusters = static_cast<int>(g.total < most ? g.total : most);
   return g;
 }
 
@@ -332,6 +377,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   __shared__ int s_arrival;
   __shared__ float s_bias[4 * BN];  // the bias of a tile's 256 columns
+  __shared__ long long s_slot[kMaxPieces];  // the pieces' slots, in piece order
   // 128-byte swizzle atoms are 1024 bytes: align the stages to them
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full_bar = base + kStages * kStageBytes;
@@ -361,7 +407,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   const int cluster = blockIdx.x / 2;
   const long long lo = g.cluster_lo(cluster);
   const long long hi = g.cluster_lo(cluster + 1);
-  const int tap_steps = g.k * g.nch;
+  const int tap_steps = g.tap_steps();
 
   if (wg == kConsumers / 128) {
     // ------------------------------------------------------------ producer
@@ -369,15 +415,12 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     if (threadIdx.x == kConsumers) {
       int stage = 0;
       uint32_t phase = 0;
-      for (long long pos = lo; pos < hi;) {
-        const int u = g.unit_at(pos);
-        const long long t0 = g.unit_start(u);
-        const int xc = u % g.n_xc, y = u / g.n_xc % g.H;
-        const int mb = u / (g.n_xc * g.H) % g.n_mb;
-        const int nt = 2 * (u / (g.n_xc * g.H * g.n_mb)) + rank;
-        const long long t1 = t0 + g.unit_steps(y);
-        const long long end = hi < t1 ? hi : t1;
-        for (int s = static_cast<int>(pos - t0); s < static_cast<int>(end - t0); ++s) {
+      for (long long pos = lo; pos < hi; ++pos) {
+        const Piece pc = g.piece(pos);
+        const int xc = pc.u % g.n_xc, y = pc.u / g.n_xc % g.H;
+        const int mb = pc.u / (g.n_xc * g.H) % g.n_mb;
+        const int nt = 2 * (pc.u / (g.n_xc * g.H * g.n_mb)) + rank;
+        for (int s = pc.s0; s < pc.s1; ++s) {
           const int dy = g.dy_lo(y) + s / tap_steps;
           const int dx = s % tap_steps / g.nch;
           const int ch = s % g.nch;
@@ -400,7 +443,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
             phase ^= 1;
           }
         }
-        pos = end;
       }
       // stay until both blocks' consumers have released every stage: the
       // peer's arrivals must not land on a block that has exited
@@ -419,15 +461,12 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     float acc[128];
     int stage = 0;
     uint32_t phase = 0;
-    for (long long pos = lo; pos < hi;) {
-      const int u = g.unit_at(pos);
-      const long long t0 = g.unit_start(u);
-      const int xc = u % g.n_xc, y = u / g.n_xc % g.H;
-      const int mb = u / (g.n_xc * g.H) % g.n_mb;
-      const int nt = 2 * (u / (g.n_xc * g.H * g.n_mb)) + rank;
-      const int t = 2 * u + rank;  // this block's tile
-      const long long t1 = t0 + g.unit_steps(y);
-      const long long end = hi < t1 ? hi : t1;
+    for (long long pos = lo; pos < hi; ++pos) {
+      const Piece pc = g.piece(pos);
+      const int xc = pc.u % g.n_xc, y = pc.u / g.n_xc % g.H;
+      const int mb = pc.u / (g.n_xc * g.H) % g.n_mb;
+      const int nt = 2 * (pc.u / (g.n_xc * g.H * g.n_mb)) + rank;
+      const int t = 2 * pc.u + rank;  // this block's tile
 
       // Both halves multiply even where one lies wholly past the last batch
       // entry (its A is zeros): a branch around the products would make the
@@ -435,7 +474,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
       int prev = -1;
-      for (long long s = pos; s < end; ++s) {
+      for (int s = pc.s0; s < pc.s1; ++s) {
         mbar_wait(full_bar + 8 * stage, phase);
         const uint32_t a = base + stage * kStageBytes + wg * 64 * kARow;
         const uint32_t b = base + stage * kStageBytes + kABytes;
@@ -466,20 +505,15 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         mbar_arrive_remote(empty_bar + 8 * prev, rank ^ 1);
       }
 
-      // A tile cut between clusters: the last block of its rank to arrive
-      // finishes it.
-      const bool whole = pos == t0 && end == t1;
-      pos = end;
-      if (!whole) {
-        const int c_first = g.cluster_at(t0);
-        const int n = g.cluster_at(t1 - 1) - c_first + 1;
+      // A tile of several pieces: the last block of its rank to arrive adds
+      // them up, in piece order.
+      if (pc.n > 1) {
         if (ct == 0) s_arrival = atomicAdd(&counters[2 * t], 1);
         consumer_sync();
-        const bool last = s_arrival == n - 1;
+        const bool last = s_arrival == pc.n - 1;
         consumer_sync();  // s_arrival is read before it is written again
         if (!last) {
-          const int slot = 2 * (2 * cluster + rank) + (lo >= t0 ? 0 : 1);
-          float4* dst = reinterpret_cast<float4*>(ws + static_cast<long long>(slot) * kSlotFloats);
+          float4* dst = reinterpret_cast<float4*>(ws + g.slot(pc, pc.j, rank) * kSlotFloats);
 #pragma unroll
           for (int q = 0; q < 32; ++q)
             __stcg(dst + q * kConsumers + ct,
@@ -489,24 +523,43 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
           if (ct == 0) atomicAdd(&counters[2 * t + 1], 1);
           continue;
         }
+        if (ct < pc.n) s_slot[ct] = g.slot(pc, ct, rank);
         if (ct == 0) {
           const long long start = clock64();
-          while (load_acquire(&counters[2 * t + 1]) < n - 1) watchdog(start);
+          while (load_acquire(&counters[2 * t + 1]) < pc.n - 1) watchdog(start);
         }
         consumer_sync();
         __threadfence();
-        for (int cl = c_first; cl < c_first + n; ++cl) {
-          if (cl == cluster) continue;
-          const int slot = 2 * (2 * cl + rank) + (g.cluster_lo(cl) >= t0 ? 0 : 1);
-          const float4* src =
-              reinterpret_cast<const float4*>(ws + static_cast<long long>(slot) * kSlotFloats);
+        // sum = ((p0 + p1) + p2) + ..., a group of 8 float4 registers at a
+        // time so that their loads are in flight together
 #pragma unroll
-          for (int q = 0; q < 32; ++q) {
-            const float4 v = __ldcg(src + q * kConsumers + ct);
-            acc[4 * q] += v.x;
-            acc[4 * q + 1] += v.y;
-            acc[4 * q + 2] += v.z;
-            acc[4 * q + 3] += v.w;
+        for (int q0 = 0; q0 < 32; q0 += 8) {
+          float4 sum[8];
+          for (int jj = 0; jj < pc.n; ++jj) {
+            const float4* src = reinterpret_cast<const float4*>(ws + s_slot[jj] * kSlotFloats);
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              const int r = 4 * (q0 + q);
+              const float4 v = jj == pc.j
+                                   ? make_float4(acc[r], acc[r + 1], acc[r + 2], acc[r + 3])
+                                   : __ldcg(src + (q0 + q) * kConsumers + ct);
+              if (jj == 0) {
+                sum[q] = v;
+              } else {
+                sum[q].x += v.x;
+                sum[q].y += v.y;
+                sum[q].z += v.z;
+                sum[q].w += v.w;
+              }
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int r = 4 * (q0 + q);
+            acc[r] = sum[q].x;
+            acc[r + 1] = sum[q].y;
+            acc[r + 2] = sum[q].z;
+            acc[r + 3] = sum[q].w;
           }
         }
       }
@@ -622,17 +675,20 @@ int max_clusters() {
 }  // namespace
 
 // The launch's schedule on the current device: out = {tiles, blocks,
-// k-steps}, summed over the blocks (each k-step a 128 x 256 x BK product).
-// The caller gives the kernel 2 * tiles zeroed int32 counters and
-// 2 * blocks * 32768 float32 of workspace.
+// k-steps summed over the blocks (each a 128 x 256 x BK product), workspace
+// slots}. The caller gives the kernel 2 * tiles zeroed int32 counters and
+// slots * 32768 float32 of workspace.
 extern "C" int conv_lstm_cell_sm90_schedule(int B, int H, int W, int Cx, int C, int k,
                                             long long* out) {
   const int clusters = max_clusters();
   if (clusters <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const Geom g = make_geom(B, H, W, Cx, C, k, clusters);
+  long long row_taps = 0;
+  for (int y = 0; y < H; ++y) row_taps += g.nv(y);
   out[0] = 2LL * g.units;
   out[1] = 2LL * g.clusters;
-  out[2] = 2 * g.total;
+  out[2] = 2LL * row_taps * g.n_xc * g.n_np * g.n_mb * g.tap_steps();
+  out[3] = g.slots();
   return 0;
 }
 
@@ -644,6 +700,7 @@ extern "C" int conv_lstm_cell_sm90(const void* x, const void* h, const void* c, 
                                    void* counters, int B, int H, int W, int Cx, int C, int k,
                                    void* stream) {
   if (B * H * W == 0) return 0;
+  if (k > kMaxPieces) return static_cast<int>(cudaErrorInvalidValue);
   const int clusters = max_clusters();
   if (clusters <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const Geom g = make_geom(B, H, W, Cx, C, k, clusters);

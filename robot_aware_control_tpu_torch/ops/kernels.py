@@ -11,7 +11,10 @@ Two kernels replace the JAX package's two Pallas kernels
     wgmma/TMA kernel of csrc/conv_lstm_cell_sm90.cu; other bf16 shapes the
     WMMA kernel and float32 cells the CUDA-core kernel of
     csrc/conv_lstm_cell.cu. The path depends only on dtype, shape and
-    alignment.
+    alignment, and each kernel's result for a batch entry depends on that
+    entry's inputs alone: not on B, not on where the entry sits in the
+    batch, not on the order in which blocks finish (the planner's batched
+    and single plans rely on it, planning/cem.py).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback from one to the
@@ -331,24 +334,27 @@ def takes_sm90(x, h, c, w) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _sm90_schedule(Bn, H, W, Cx, C, k, device) -> dict:
-    out = (ctypes.c_longlong * 3)()
+    out = (ctypes.c_longlong * 4)()
     with torch.cuda.device(device):
         err = _lib("conv_lstm_cell_sm90").conv_lstm_cell_sm90_schedule(
             Bn, H, W, Cx, C, k, ctypes.addressof(out))
     _check_err(err, "conv_lstm_cell_sm90_schedule")
-    return dict(zip(("tiles", "grid", "steps"), out))
+    return dict(zip(("tiles", "grid", "steps", "slots"), out))
 
 
 def sm90_schedule(Bn, H, W, Cx, C, k, device=None) -> dict:
-    """The wgmma/TMA kernel's stream-K schedule on `device`: output tiles,
-    persistent blocks (clusters of two, one block an SM) and k-steps summed
-    over the blocks (each a product of 128 x 256 x 64)."""
+    """The wgmma/TMA kernel's schedule on `device`: output tiles, persistent
+    blocks (clusters of two, one block an SM), k-steps summed over the
+    blocks (each a product of 128 x 256 x 64) and the workspace slots of
+    128 KB its partial sums take."""
     dev = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     return dict(_sm90_schedule(Bn, H, W, Cx, C, k, index))
 
 
 def _launch_cell(fn_name, dims, x, h, c, w, b):
+    """fn_name: "conv_lstm_cell_sm90" for the wgmma/TMA kernel, else a
+    function of conv_lstm_cell.cu."""
     Bn, H, W, Cx, C, k = dims
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
@@ -358,9 +364,9 @@ def _launch_cell(fn_name, dims, x, h, c, w, b):
                 b.data_ptr(), h_out.data_ptr(), c_out.data_ptr()]
         if fn_name == "conv_lstm_cell_sm90":
             s = sm90_schedule(Bn, H, W, Cx, C, k, x.device)
-            # float32 partials of tiles cut between blocks, two slots a
-            # block; per tile an arrival and a done counter, zeroed
-            ws = torch.empty(2 * s["grid"] * 128 * 256, device=x.device)
+            # float32 partial sums of tiles cut between blocks; per tile an
+            # arrival and a done counter, zeroed
+            ws = torch.empty(s["slots"] * 128 * 256, device=x.device)
             counters = torch.zeros(2 * s["tiles"], device=x.device,
                                    dtype=torch.int32)
             args += [ws.data_ptr(), counters.data_ptr()]

@@ -18,6 +18,8 @@ recomputes for a checkpointed backward thus updates nothing twice.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Sequence
 
 import torch
@@ -26,6 +28,23 @@ from torch import nn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+
+# rows of the batch a convolution takes at once (None: all of them)
+_CONV_ROWS = contextvars.ContextVar("conv_rows", default=None)
+
+
+@contextlib.contextmanager
+def conv_rows(rows: Optional[int]):
+    """Inside, every Conv2d runs on `rows` rows of its batch at a time, so
+    that a batch of several requests' rows convolves each request at the
+    batch size it has alone (cuDNN may choose another algorithm, which
+    adds in another order, for another batch size)."""
+    token = _CONV_ROWS.set(rows)
+    try:
+        yield
+    finally:
+        _CONV_ROWS.reset(token)
 
 
 class Conv2d(nn.Module):
@@ -40,6 +59,9 @@ class Conv2d(nn.Module):
                      if bias else None)
 
     def forward(self, x):
+        rows = _CONV_ROWS.get()
+        if rows is not None and x.shape[0] > rows:
+            return torch.cat([self(part) for part in x.split(rows)])
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
                      padding=self.weight.shape[-1] // 2)

@@ -33,12 +33,13 @@ from robot_aware_control_tpu_torch.models.common import composite
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.models.svg import compute_dtype
 from robot_aware_control_tpu_torch.ops.losses import zero_robot_region
+from robot_aware_control_tpu_torch.ops.nn import conv_rows
 from robot_aware_control_tpu_torch.planning.cost import RobotWorldCost
 from robot_aware_control_tpu_torch.robot import locobot_kinematics as lk
 from robot_aware_control_tpu_torch.robot.mask_renderer import CapsuleMaskRenderer
 from robot_aware_control_tpu_torch.training.step import _conditioning, _model_step
 from robot_aware_control_tpu_torch.utils.device import resolve_device
-from robot_aware_control_tpu_torch.utils.state import DemoGoalState
+from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 
 
 def _needs_robot_model(cfg: Config) -> bool:
@@ -83,20 +84,52 @@ def prepare_goals(goal: DemoGoalState, T: int):
 
 
 class RolloutEngine:
-    """Rollout + cost over N candidate action sequences on one device."""
+    """Rollout + cost of candidate action sequences on one device, for one
+    request or for several planned together (planning/cem.py).
+
+    Per-request inputs carry a leading request axis R: start_img
+    (R, H, W, C), start_state_norm (R, 5), start_qpos (R, >=5), goal_imgs
+    (R, T, H, W, C), goal_masks (R, T, H, W, 1) or None, goal_states
+    (R, T, 5) or None; actions (R * n, T, A) hold each request's n
+    candidates in turn. Without the axis (start_img (H, W, C), as the JAX
+    engine takes them) they are one request.
+
+    A request's costs must be the same bits whatever else is planned with
+    it. The model steps run once over all R * n rows, where every kernel
+    but the convolutions gives each row a result of its own inputs alone
+    (elementwise work, the mask and cell kernels). The convolutions take
+    each request's n rows apart (ops/nn.py:conv_rows): cuDNN chooses its
+    algorithm by the batch, and on the H100 five of the encoder's
+    convolutions summed in another order at B = 400 than at B = 100. The
+    costs run per request too (a reduction's order depends on how many
+    rows it reduces)."""
 
     qpos_dim = 5  # locobot: yaw, shoulder, elbow, wrist, roll
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, camera_key: str = "locobot_c0",
+                 push_height: float = lk.PUSH_HEIGHT,
+                 default_pitch: float = lk.DEFAULT_PITCH,
+                 default_roll: float = lk.DEFAULT_ROLL,
+                 pick: bool = False, device="cuda"):
         if cfg.model_use_heatmap:
             raise NotImplementedError("heatmap conditioning is not ported yet")
+        if cfg.experiment in ("control_franka", "control_wx250s") and not pick:
+            raise NotImplementedError(
+                f"{cfg.experiment}: chain-robot rollouts wait for "
+                "robot/kinematic_chain.py, which is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # pick rollouts integrate 3-D eef motion (reference: the pick
+        # sampler steps MuJoCo, src/cem/pick/trajectory_sampler.py:253-266)
+        self.pick = pick
+        self.push_height = push_height
+        self.default_pitch = default_pitch
+        self.default_roll = default_roll
         self.cost = RobotWorldCost(cfg)
         self.low = torch.tensor(LOCOBOT_LOW, device=self.device)
         self.high = torch.tensor(LOCOBOT_HIGH, device=self.device)
         self.renderer_thick = CapsuleMaskRenderer(
-            (cfg.image_height, cfg.image_width),
+            (cfg.image_height, cfg.image_width), camera_key,
             thick=bool(cfg.cem_prediction_use_thick_mask),
             modified=cfg.modified, device=self.device)
         self.use_robot = _needs_robot_model(cfg)
@@ -106,16 +139,22 @@ class RolloutEngine:
         """IK + mask render for all candidates and steps
         (replaces reference trajectory_sampler.py:86-107).
 
-        start_state_norm (5,), start_qpos (>=5,), actions_tna (T, N, >=2).
-        Returns (states_norm (T+1,N,rd), states_raw (T+1,N,5),
-        masks (T+1,N,h,w,1))."""
-        N = actions_tna.shape[1]
+        start_state_norm (B, 5), start_qpos (B, >=5), actions_tna
+        (T, B, >=2), one row per candidate. Returns (states_norm
+        (T+1,B,rd), states_raw (T+1,B,5), masks (T+1,B,h,w,1))."""
         start_raw = denormalize(start_state_norm, self.low, self.high)
-        start_raw_n = start_raw.expand((N,) + start_raw.shape)
-        qpos_n = start_qpos[:5].float().expand(N, 5)
-        # env-unit actions -> metric eef displacements
-        planar = actions_tna[..., :2] * self.cfg.eef_action_scale
-        states_raw, qpos = lk.integrate_planar_actions(start_raw_n, qpos_n, planar)
+        qpos = start_qpos[..., :5].float()
+        if self.pick:
+            # pick actions are env-unit eef deltas (x0.05 inside)
+            states_raw, qpos = lk.integrate_pick_actions(
+                start_raw, qpos, actions_tna, pitch=self.default_pitch,
+                roll=self.default_roll)
+        else:
+            # env-unit actions -> metric eef displacements
+            planar = actions_tna[..., :2] * self.cfg.eef_action_scale
+            states_raw, qpos = lk.integrate_planar_actions(
+                start_raw, qpos, planar, push_height=self.push_height,
+                pitch=self.default_pitch, roll=self.default_roll)
         masks = self.renderer_thick.render(qpos)
         return self._norm_to_robot_dim(states_raw), states_raw, masks
 
@@ -132,47 +171,142 @@ class RolloutEngine:
 
     @torch.inference_mode()
     def __call__(self, model, start_img, start_state_norm, start_qpos,
-                 actions, goal_imgs, goal_masks, generator: torch.Generator,
-                 goal_states=None):
-        """actions (N, T, A>=2); start_img (H,W,C) float [0,1];
-        goal_imgs (T, H, W, C) pre-indexed per step; goal_masks
-        (T, H, W, 1) or None; goal_states (T, 5) raw demo eef states or
-        None — with robot_cost_weight != 0 they add a per-step robot-state
-        cost. All tensors on the engine's device. Returns sum_cost (N,)."""
+                 actions, goal_imgs, goal_masks, generator=None,
+                 goal_states=None, ret_obs: bool = False, eps_prior=None):
+        """Inputs as in the class docstring, all on the engine's device;
+        goal_imgs etc. are pre-indexed per step (goal_idx = min(t, G-1)).
+        With robot_cost_weight != 0, goal_states add a per-step robot-state
+        cost. `eps_prior` (T, R * n, fh, fw, z_dim) float32 replaces the
+        prior's draws from `generator`. Returns sum_cost (R * n,) [and obs
+        (T, R * n, H, W, C) when ret_obs]."""
         cfg = self.cfg
-        N, T = actions.shape[0], actions.shape[1]
+        if start_img.dim() == 3:  # one request
+            start_img, start_state_norm, start_qpos, goal_imgs = (
+                t[None] for t in (start_img, start_state_norm, start_qpos,
+                                  goal_imgs))
+            goal_masks = None if goal_masks is None else goal_masks[None]
+            goal_states = None if goal_states is None else goal_states[None]
+        R = start_img.shape[0]
+        B, T = actions.shape[0], actions.shape[1]
+        n = B // R
         dev = self.device
-        actions_tna = actions.transpose(0, 1)  # (T, N, A)
+        actions_tna = actions.transpose(0, 1)  # (T, B, A)
+        per_row = lambda t: t.repeat_interleave(n, 0)  # (R, ...) -> (B, ...)
 
         if self.use_robot:
             states, states_raw, masks = self.robot_trajectory(
-                start_state_norm, start_qpos, actions_tna)
+                per_row(start_state_norm), per_row(start_qpos), actions_tna)
         else:
-            states = torch.zeros(T + 1, N, cfg.robot_dim, device=dev)
-            states_raw = torch.zeros(T + 1, N, 5, device=dev)
-            masks = torch.zeros(T + 1, N, cfg.image_height, cfg.image_width,
+            states = torch.zeros(T + 1, B, cfg.robot_dim, device=dev)
+            states_raw = torch.zeros(T + 1, B, 5, device=dev)
+            masks = torch.zeros(T + 1, B, cfg.image_height, cfg.image_width,
                                 1, device=dev)
         use_robot_cost = cfg.robot_cost_weight != 0 and goal_states is not None
         if goal_masks is None:
             goal_masks = torch.zeros(goal_imgs.shape[:-1] + (1,), device=dev)
 
-        curr = start_img.expand((N,) + start_img.shape).to(self.dtype)
-        carry = get_model(cfg).init_carry(cfg, N, self.dtype, dev)
+        curr = per_row(start_img).to(self.dtype)
+        carry = get_model(cfg).init_carry(cfg, B, self.dtype, dev)
         blackout = cfg.dontcare  # dontcare recon loss or black_robot_input
-        rewards = []
+        rewards, obs = [], []
         for t in range(T):
             model_in = zero_robot_region(masks[t], curr) if blackout else curr
             m_in, r_in, hm_in = _conditioning(
                 cfg, masks[t], masks[t + 1], states[t], states[t + 1],
                 None, None)
-            out, carry = _model_step(
-                cfg, model, carry, model_in, m_in, r_in, hm_in,
-                actions_tna[t], generator, sample_mean=cfg.sample_mean)
+            with conv_rows(n if R > 1 else None):
+                out, carry = _model_step(
+                    cfg, model, carry, model_in, m_in, r_in, hm_in,
+                    actions_tna[t], generator, sample_mean=cfg.sample_mean,
+                    noise=None if eps_prior is None else (eps_prior[t], None))
             curr = composite(cfg, out["x_pred"], curr).to(self.dtype)
-            rewards.append(self.cost(
-                curr, goal_imgs[t], curr_mask=masks[t + 1],
-                goal_mask=goal_masks[t],
-                curr_state=states_raw[t + 1] if use_robot_cost else None,
-                goal_state=goal_states[t] if use_robot_cost else None))
+            rewards.append(torch.cat([self.cost(
+                curr[r * n:(r + 1) * n], goal_imgs[r, t],
+                curr_mask=masks[t + 1, r * n:(r + 1) * n],
+                goal_mask=goal_masks[r, t],
+                curr_state=(states_raw[t + 1, r * n:(r + 1) * n]
+                            if use_robot_cost else None),
+                goal_state=goal_states[r, t] if use_robot_cost else None)
+                for r in range(R)]))
+            if ret_obs:
+                obs.append(curr)
         rewards = torch.stack(rewards)
-        return rewards[-1] if cfg.sparse_cost else rewards.sum(0)
+        sum_cost = rewards[-1] if cfg.sparse_cost else rewards.sum(0)
+        return (sum_cost, torch.stack(obs)) if ret_obs else sum_cost
+
+
+def request_inputs(cfg: Config, start: State, goal: DemoGoalState, T: int,
+                   qpos_dim: int = 5):
+    """Normalization, frame shift and goal indexing of one request as numpy
+    (reference: trajectory_sampler.py:86-158): start_img (H, W, C) in
+    [0, 1], start_state_norm (5,), start_qpos (qpos_dim,), goal_imgs
+    (T, H, W, C), goal_masks (T, H, W, 1) or None, goal_states (T, 5) or
+    None."""
+    img = np.asarray(start.img, np.float32)
+    if img.max() > 1.5:
+        img = img / 255.0
+    state_raw = frame_shift(cfg, start.state)
+    state_norm = normalize(state_raw, LOCOBOT_LOW[: len(state_raw)],
+                           LOCOBOT_HIGH[: len(state_raw)])
+    qpos = np.zeros(qpos_dim, np.float32)
+    if start.qpos is not None:
+        q = np.asarray(start.qpos, np.float32).ravel()[:qpos_dim]
+        qpos[: len(q)] = q
+    return (img, state_norm, qpos) + prepare_goals(goal, T)
+
+
+class TrajectorySampler:
+    """Host-facing API with the reference's contract
+    (reference: src/cem/trajectory_sampler.py:15-199).
+
+    generate_model_rollouts(action_sequences, start, goal) -> dict with
+    "sum_cost" (N,), "optimal_sum_cost" with opt_traj, and "topk_idx"/"obs"
+    (and "optimal_obs") when ret_obs."""
+
+    def __init__(self, cfg: Config, model, device="cuda", **engine_kw):
+        self.cfg = cfg
+        self.model = model
+        self.engine = RolloutEngine(cfg, device=device, **engine_kw)
+        self.device = self.engine.device
+
+    def generate_model_rollouts(self, action_sequences, start: State,
+                                goal: DemoGoalState, opt_traj=None,
+                                ret_obs: bool = False,
+                                suppress_print: bool = True, rng=None):
+        """action_sequences (N, T, A); opt_traj (T, <=A) is rolled out as
+        one more candidate. `rng`, a torch.Generator on the device, draws
+        the prior's noise (default: seeded with cfg.seed)."""
+        cfg, dev = self.cfg, self.device
+        acts = np.asarray(action_sequences, np.float32)
+        if opt_traj is not None:
+            opt = np.asarray(opt_traj, np.float32)
+            if opt.shape[-1] < acts.shape[-1]:
+                opt = np.pad(opt, ((0, 0), (0, acts.shape[-1] - opt.shape[-1])))
+            acts = np.concatenate([acts, opt[None]], 0)
+        T = acts.shape[1]
+        if rng is None:
+            rng = torch.Generator(device=dev).manual_seed(cfg.seed)
+        t = lambda a: None if a is None else torch.as_tensor(a, device=dev)[None]
+        inputs = request_inputs(cfg, start, goal, T)
+        result = self.engine(self.model, *map(t, inputs[:3]),
+                             torch.as_tensor(acts, device=dev),
+                             *map(t, inputs[3:5]), rng,
+                             goal_states=t(inputs[5]), ret_obs=ret_obs)
+        rollouts = {}
+        if ret_obs:
+            sum_cost, obs = result
+            obs = obs.transpose(0, 1).float().cpu().numpy()  # (N, T, H, W, C)
+        else:
+            sum_cost = result
+        sum_cost = sum_cost.float().cpu().numpy()
+        if opt_traj is not None:
+            rollouts["optimal_sum_cost"] = sum_cost[-1]
+            if ret_obs:
+                rollouts["optimal_obs"] = obs[-1]
+            sum_cost = sum_cost[:-1]
+        rollouts["sum_cost"] = sum_cost
+        if ret_obs:
+            topk_idx = np.argsort(sum_cost)[-cfg.topk:]
+            rollouts["topk_idx"] = topk_idx
+            rollouts["obs"] = obs[topk_idx]
+        return rollouts

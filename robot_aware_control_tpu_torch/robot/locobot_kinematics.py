@@ -134,3 +134,47 @@ def integrate_planar_actions(start_eef, start_qpos, actions,
     pad = torch.zeros(eefs.shape[:-1] + (2,), dtype=eefs.dtype,
                       device=eefs.device)
     return torch.cat([eefs, pad], -1), torch.stack(qs)
+
+
+def eef_position(qpos, l3: float = L3):
+    """qpos (..., >=4) -> the gripper tip's world position (..., 3)."""
+    return fk_points(qpos, l3)[..., 4, :]
+
+
+# pick-env workspace bounds (reference: locobot_pick_env eef clip, the same
+# mocap x0.05 + clip scheme as the table env)
+PICK_WS_LOW = (0.015, -0.3, 0.1)
+PICK_WS_HIGH = (0.55, 0.3, 0.4)
+
+
+def integrate_pick_actions(start_eef, start_qpos, actions,
+                           action_scale: float = 0.05,
+                           pitch: float = DEFAULT_PITCH,
+                           roll: float = DEFAULT_ROLL,
+                           l3: float = L3):
+    """3-D eef integration for pick rollouts: the env's eef update rule,
+    action[:3] * 0.05 clipped to the pick workspace
+    (locobot_pick_env.py:163-238), then 3-D analytic IK (reference: the pick
+    sampler steps MuJoCo per candidate and step,
+    src/cem/pick/trajectory_sampler.py:253-266).
+
+    start_eef (..., >=3) raw world xyz; start_qpos (..., 5); actions
+    (T, ..., >=3) in env units. Returns (states (T+1, ..., 5) rows
+    [x, y, z, 0, 0], qpos (T+1, ..., 5))."""
+    like = start_eef
+    lo = torch.tensor(PICK_WS_LOW, dtype=like.dtype, device=like.device)
+    hi = torch.tensor(PICK_WS_HIGH, dtype=like.dtype, device=like.device)
+    eef = start_eef[..., :3]
+    q = start_qpos
+    eefs, qs = [eef], [q]
+    for act in actions:
+        eef = torch.minimum(torch.maximum(eef + act[..., :3] * action_scale,
+                                          lo), hi)
+        theta, _ = ik(eef, -pitch, q[..., :4], l3)
+        q = torch.cat([theta, torch.full_like(theta[..., :1], roll)], -1)
+        eefs.append(eef)
+        qs.append(q)
+    eefs = torch.stack(eefs)
+    pad = torch.zeros(eefs.shape[:-1] + (2,), dtype=eefs.dtype,
+                      device=eefs.device)
+    return torch.cat([eefs, pad], -1), torch.stack(qs)

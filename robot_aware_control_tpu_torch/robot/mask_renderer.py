@@ -45,14 +45,17 @@ LOCOBOT_BASE_RADII = np.asarray(_lt.LOCOBOT_BASE_RADII, np.float32)
 
 
 class CapsuleMaskRenderer:
-    """Projects FK capsules (4 arm links + 4 static base capsules) into
-    the locobot_c0 camera's image plane."""
+    """Projects FK capsules (4 arm links + 4 static base capsules) into the
+    image plane of the camera registered under `camera_key`
+    (data/calibration.py; a controller may register its own calibration
+    there first)."""
 
     def __init__(self, image_size: Tuple[int, int] = (48, 64),  # (h, w)
-                 thick: bool = False, modified: bool = False, device="cuda"):
+                 camera_key: str = "locobot_c0", thick: bool = False,
+                 modified: bool = False, device="cuda"):
         self.h, self.w = image_size
         dev = resolve_device(device)
-        w2c = calib.get_world_to_camera("locobot_c0")
+        w2c = calib.get_world_to_camera(camera_key)
         K = calib.CAM_INTRINSICS["intel_realsense_d435"]
         ow, oh = calib.CAM_RESOLUTION["intel_realsense_d435"]
         self._w2c = torch.tensor(w2c, dtype=torch.float32, device=dev)

@@ -11,12 +11,19 @@ import pytest
 import torch
 
 from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.control.plan_server import PlanServer
 from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.training.step import make_eval_step
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 from torch_mask_cases import MASK_CASES, mask_case
+from torch_serve_cases import (
+    cell_invariance,
+    plan_checks,
+    serve_checks,
+    small_cell_invariance,
+)
 from torch_train_small import (
     EVAL_TOL,
     GRAD_TOL_DEVICES,
@@ -110,12 +117,14 @@ def test_gpu_cell_kernel_matches_plain(cuda, monkeypatch, dtype, tol,
 # Cx != C catches misplaced B tiles; C = 40 a partial 64-channel tile; B = 3
 # and 13 a batch run (16 entries) that TMA fills past the end; 5x7 maps a
 # row narrower than the 8-column box; k = 5 on 5 or 6 rows skips row taps
-# at the border; then the planner's cell0 (B = 100) and the trainer's eval
-# cells (B = 16: 24 output tiles, another stream-K split)
+# at the border; then the planner's cell0 (B = 100), the trainer's eval
+# cells (B = 16: 24 output tiles, 48 pieces for 66 clusters) and the cells
+# of 2 and 4 requests planned together (B = 200 and 400)
 @pytest.mark.parametrize("B,H,W,Cx,C,k", [
     (3, 6, 8, 64, 128, 5), (13, 5, 7, 64, 128, 3), (13, 6, 8, 40, 40, 3),
     (3, 5, 7, 24, 40, 5), (13, 5, 7, 128, 64, 5), (100, 6, 8, 256, 256, 5),
-    (16, 6, 8, 256, 256, 5), (16, 6, 8, 256, 256, 3)])
+    (16, 6, 8, 256, 256, 5), (16, 6, 8, 256, 256, 3),
+    (200, 6, 8, 256, 256, 3), (400, 6, 8, 256, 256, 5)])
 def test_gpu_sm90_cell_matches_plain(cuda, B, H, W, Cx, C, k):
     """The wgmma/TMA kernel to one bf16 rounding step (1e-2 absolute and
     relative), launched once per call."""
@@ -243,3 +252,55 @@ def test_gpu_kernels_refuse_autograd(cuda):
     with torch.no_grad():
         kernels.conv_lstm_cell(x, h, c, w, b)
         kernels.capsule_mask_render(segs, hh, ww)
+
+
+# ----------------------------------------------------------------- serving
+# a small bf16 planner whose cells (16 + 16 channels) take the wgmma/TMA
+# kernel: batched plans run them at B = 6, 12 and 24
+SERVE_SMALL = dict(model="svg", g_dim=16, z_dim=4, action_dim=5, robot_dim=5,
+                   model_use_mask=True, model_use_robot_state=True,
+                   reconstruction_loss="dontcare_l1", reward_type="dontcare",
+                   compute_dtype="bfloat16", horizon=3, opt_iter=2,
+                   action_candidates=6, topk=2, cem_init_std=0.015)
+
+
+@pytest.mark.parametrize("k", [5, 3])
+def test_gpu_cell_result_depends_on_its_row_alone(cuda, k):
+    """The wgmma/TMA cell at the planner's widths: 50 launches of identical
+    inputs give identical bits at B = 16, 100, 200 and 400, and rows of a
+    B = 100 launch equal the same rows at offsets 0 and 100 of B = 200
+    launches, at 0, 100, 200 and 300 of B = 400 launches, and the first 16
+    a B = 16 launch."""
+    cell_invariance(cuda, ks=(k,))
+
+
+def test_gpu_small_cell_kernels_depend_on_their_row_alone(cuda):
+    """The same for the WMMA (bf16) and CUDA-core (float32) kernels."""
+    assert len(small_cell_invariance(cuda)) == 4
+
+
+def test_gpu_batched_plans_equal_single(cuda):
+    """One request planned twice gives one plan; get_action_batched of
+    R = 2, 3 (padded to 4) and 4 requests equals their single plans bit
+    for bit, all cells through sm90."""
+    cfg = Config(**SERVE_SMALL)
+    before = kernels.launches["conv_lstm_cell_sm90"]
+    plan_checks(CEMPolicy(cfg, svg.init(cfg, 0, cuda)), repeats=2)
+    assert (kernels.launches["conv_lstm_cell_sm90"] - before
+            == 4 * (cfg.horizon - 1) * cfg.opt_iter * (6 + 2))
+
+
+def test_gpu_served_plans_equal_local(cuda):
+    """A PlanServer on a thread: one client alone and 4 concurrent clients
+    get their local plans, and a micro-batch is seen."""
+    cfg = Config(**SERVE_SMALL)
+    model = svg.init(cfg, 0, cuda)
+    singles = plan_checks(CEMPolicy(cfg, model), repeats=1,
+                          batch_sizes=(4,))["singles"]
+    server = PlanServer(cfg, model)
+    thread = server.start()
+    try:
+        serve_checks(server, singles, rounds=1)
+    finally:
+        server.close()
+        thread.join(timeout=10)

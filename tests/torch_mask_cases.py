@@ -137,18 +137,20 @@ def _nonfinite(rng):
 
 
 PLANNER_POSES = np.random.RandomState(500).uniform(-0.5, 0.5, (500, 5))
+# a launch of four requests planned together: 4 x 500 masks
+SERVED_POSES = np.random.RandomState(2000).uniform(-0.5, 0.5, (2000, 5))
 
 
-def _planner(rng):
-    """Thick-mask segments of 500 random arm poses, as the planner renders
-    them (the poses of chip_smoke.py's mask timing)."""
+def _planner(poses):
+    """Thick-mask segments of random arm poses, as the planner renders
+    them (the 500 poses are those of chip_smoke.py's mask timing)."""
     r = CapsuleMaskRenderer((48, 64), thick=True, device="cpu")
-    return r.segment_params(torch.tensor(PLANNER_POSES, dtype=torch.float32)
+    return r.segment_params(torch.tensor(poses, dtype=torch.float32)
                             ).numpy(), 48, 64
 
 
 MASK_CASES = {
-    "planner_500": _planner,
+    "planner_500": lambda rng: _planner(PLANNER_POSES),
     "m1": lambda rng: (scattered(rng, 1, 8, 48, 64), 48, 64),
     "m37": lambda rng: (scattered(rng, 37, 8, 48, 64), 48, 64),
     "s1": lambda rng: (scattered(rng, 37, 1, 48, 64), 48, 64),
@@ -163,6 +165,7 @@ MASK_CASES = {
     "box_edge": lambda rng: _box_edge(),
     "nonfinite": _nonfinite,
     "empty": lambda rng: (np.zeros((0, 8, 6)), 48, 64),
+    "served_2000": lambda rng: _planner(SERVED_POSES),
 }
 
 
