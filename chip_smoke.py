@@ -79,9 +79,33 @@ Phases, each of which raises on failure:
                 served plans counted (160 cells a plan program, all sm90,
                 10 masks); latency per request at 1 and 4 clients and plans
                 per second at 4 (medians of the 3 rounds).
+ 11. variants   the model variants a JAX checkpoint can carry, at the
+                canonical planning config with weights from a seed:
+                (a) heatmap and future-heatmap conditioning, (b) the
+                inpaint-blur cost at its defaults (img_dim 128, sigma 10,
+                unblur_timestep 1), (c) GroupNorm ConvLSTM cells, (d) the det
+                model; for each, one warm-up and three timed plans, finite
+                and shaped, launching the cell 160 times through sm90 (a,
+                b), 0 times (c) or 80 times through the WMMA kernel (d,
+                260 channels), and the mask kernel 10 times; a profiled plan
+                (device time; for (b) the blur's share of it, the blur timed
+                by CUDA events, beside a 255-tap cuDNN depthwise convolution
+                of the same sums); the WMMA cell against its plain version at
+                det's shapes (B=100, 200 and 400, 6x8, Cx=C=260, k=5 and 3);
+                GPU-vs-CPU parity of small float32 plans (a, c, d) and
+                rollout costs (all four; the blur's within one 1/255 step a
+                pixel on another step); each variant's batched plans (R =
+                2, 4) equal its single plans bit for bit; GPU-vs-CPU parity
+                of a small float32 train step for
+                GroupNorm + heatmaps and for det; one train step at the
+                training config of bench.py:136-156 for each of those two
+                (heatmaps from the batch's states by create_heatmaps); the
+                trainer's --model copy baseline on the synthetic experiment;
+                a det trainer loading another's checkpoint through
+                --dynamics_model_ckpt and training on from its step.
 
-Prints the card line, one JSON line each of the train and serve phases and
-one of kernels, then, as the last line,
+Prints the card line, one JSON line each of the train, serve and variants
+phases and one of kernels, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
@@ -101,13 +125,14 @@ import torch.nn.functional as F
 
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models import svg
+from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.control.plan_server import PlanServer
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
+from robot_aware_control_tpu_torch.planning.cost import InpaintBlurCost, gaussian_blur
 from robot_aware_control_tpu_torch.training import checkpoint as ckpt
 from robot_aware_control_tpu_torch.training.step import make_train_step
 from robot_aware_control_tpu_torch.training.trainer import PredictionTrainer
-from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 
 # the mask kernel's cases, shared with its GPU and CPU tests
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -129,6 +154,18 @@ from torch_train_small import (  # noqa: E402
     eval_kernel_vs_plain,
     train_step_parity,
 )
+from torch_variant_cases import (  # noqa: E402
+    CANONICAL,
+    COST_RTOL,
+    PLAN_TOL,
+    SMALL,
+    TRAIN_VARIANTS,
+    VARIANTS,
+    plan_launches,
+    small_cost_parity,
+    small_plan_parity,
+    start_goal,
+)
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, float32 CUDA cores,
 # HBM3 bandwidth (at the full 700 W power limit)
@@ -136,21 +173,10 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-CANONICAL = dict(  # bench.py:266-287
-    model="svg", g_dim=256, z_dim=64, image_height=48, image_width=64,
-    action_dim=5, robot_dim=5, model_use_mask=True, model_use_future_mask=True,
-    model_use_robot_state=True, reconstruction_loss="dontcare_l1",
-    reward_type="dontcare", compute_dtype="bfloat16", horizon=5, opt_iter=10,
-    action_candidates=100, topk=5, cem_init_std=0.015,
-)
-SMALL = dict(CANONICAL, g_dim=16, z_dim=4, compute_dtype="float32",
-             horizon=3, opt_iter=2, action_candidates=6, topk=2,
-             sample_mean=True)
 # tolerances of kernel vs plain: bf16 outputs may differ by one bf16
 # rounding step (2^-8 relative) where the float32 gate sums, taken in
 # another order, straddle a rounding boundary; float32 by sum order only
 CELL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-PLAN_TOL = 1e-4
 MASK_SRC = "robot_aware_control_tpu_torch/csrc/capsule_mask.cu"
 CELL_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell_sm90.cu"
 CELL_REPLACES = "robot_aware_control_tpu/ops/pallas_kernels.py:146"
@@ -160,6 +186,12 @@ PLANNER_CELLS = [(100, 6, 8, 256, 256, 5), (100, 6, 8, 256, 256, 3)]
 EVAL_CELLS = [(16, 6, 8, 256, 256, 5), (16, 6, 8, 256, 256, 3)]
 # two and four requests planned together: B = 2 x 100 and 4 x 100
 SERVE_CELLS = [(B, 6, 8, 256, 256, k) for B in (200, 400) for k in (5, 3)]
+# the det model's plan cells: g_dim 256 + 2 action + 2 state maps = 260
+# channels, which the wgmma/TMA kernel does not take (not a multiple of 8)
+DET_CELLS = [(100, 6, 8, 260, 260, 5), (100, 6, 8, 260, 260, 3)]
+# det planned for two and four requests together: B = 2 x 100 and 4 x 100
+DET_SERVE_CELLS = [(B, 6, 8, 260, 260, k) for B in (200, 400) for k in (5, 3)]
+WMMA_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell.cu"
 
 
 def cuda_ms(fn, n: int = 20, sleep_cycles: int = 200_000_000) -> float:
@@ -262,16 +294,6 @@ def check_cells(dev):
 
 
 # ----------------------------------------------------------------- plans
-def start_goal(rng, h=48, w=64):
-    start = State(img=rng.rand(h, w, 3).astype(np.float32),
-                  state=np.array([0.3, 0.0, 0.15, 0.0, 0.0], np.float32),
-                  qpos=np.zeros(5, np.float32))
-    goal = DemoGoalState(
-        imgs=[rng.rand(h, w, 3).astype(np.float32) for _ in range(4)],
-        masks=[np.zeros((h, w), np.float32) for _ in range(4)])
-    return start, goal
-
-
 def check_small_plan_parity():
     cfg = Config(**SMALL)
     start, goal = start_goal(np.random.RandomState(1))
@@ -771,6 +793,290 @@ def check_trainer():
     return out
 
 
+# -------------------------------------------------------------- variants
+def check_det_cells(dev):
+    """The WMMA kernel against its plain version at det's plan shapes, of
+    one request and of 2 and 4 planned together, one launch each, none
+    through sm90. Returns max |kernel - plain| by shape."""
+    errs = {}
+    for shape in DET_CELLS + DET_SERVE_CELLS:
+        args = cell_inputs(*shape, torch.bfloat16, dev, seed=sum(shape))
+        before = dict(kernels.launches)
+        got = kernels.conv_lstm_cell(*args)
+        launched = {k: kernels.launches[k] - before[k] for k in before}
+        if launched != {"conv_lstm_cell": 1, "conv_lstm_cell_sm90": 0,
+                        "capsule_mask_render": 0}:
+            raise AssertionError(f"{shape}: launched {launched}, expected one "
+                                 "WMMA launch")
+        tol = CELL_TOL[torch.bfloat16]
+        errs[shape] = cell_err(got, kernels.conv_lstm_cell_plain(*args), tol)
+        print(f"cell B,H,W,Cx,C,k={shape} bf16 wmma (det): max |kernel - "
+              f"plain| = {errs[shape]:.3g} (tolerance {tol} abs + rel)")
+    return errs
+
+
+def variant_plans(name, n_timed=3):
+    """The canonical planner with the variant's fields: one warm-up and
+    n_timed timed plans, each finite, shaped and launching `plan_launches`;
+    then one profiled plan. Returns the config, the policy and the timings,
+    the launches of the plans (counts zeroed just before them) and the
+    profile."""
+    cfg = Config(**dict(CANONICAL, **VARIANTS[name]))
+    policy = CEMPolicy(cfg, get_model(cfg).init(cfg, seed=0, device="cuda"))
+    start, goal = start_goal(np.random.RandomState(0))
+    want = plan_launches(cfg)
+    seconds = []
+    kernels.reset_launches()
+    for i in range(n_timed + 1):
+        before = dict(kernels.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = policy.get_action(start, goal, ep_num=1, step=i)
+        torch.cuda.synchronize()
+        if i:
+            seconds.append(time.perf_counter() - t0)
+        got = {k: kernels.launches[k] - before[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name} plan {i} launched {got}, expected "
+                                 f"{want}")
+        if plan.shape != (cfg.horizon - 1, 2) or not np.all(np.isfinite(plan)):
+            raise AssertionError(f"{name}: bad plan {plan!r}")
+    launches = dict(kernels.launches)
+    latency = statistics.median(seconds)
+    print(f"variant {name}: plan latency {latency:.4f} s (median of "
+          f"{n_timed}: " + ", ".join(f"{v:.4f}" for v in seconds)
+          + f"), {cfg.opt_iter * cfg.action_candidates / latency:.1f} "
+          f"rollouts/s; launches per plan {want}")
+    prof = profile_plan(lambda: policy.get_action(start, goal, ep_num=2, step=0),
+                        f"{name} plan")
+    out = dict(latency_s=latency, latency_runs=seconds, launches=launches,
+               launches_per_plan=want)
+    if prof:
+        out["busy_ms"], out["wall_ms"] = prof
+        out["busy_share"] = prof[0] / prof[1]
+    return cfg, policy, out
+
+
+def time_blur(cfg, dev, busy_ms):
+    """The inpaint-blur cost's blur at a plan's shapes by CUDA events: the
+    N candidates' predicted frames and the goal, on each blurred step of
+    each iteration; its device time a plan against the profiled plan's.
+    Beside it, the same sums as cuDNN depthwise convolutions (the JAX
+    package's formulation: a (2 radius + 1)-tap column pass, then a row
+    pass, float32 with TF32 off), which the port does not run."""
+    cost = InpaintBlurCost(cfg)
+    T = cfg.horizon - 1
+    blurred = sum(t < T - cfg.unblur_timestep for t in range(T))
+    h, w = cfg.image_height, cfg.image_width
+    frames = torch.rand(cfg.action_candidates, h, w, 3, device=dev)
+    goal = torch.rand(1, h, w, 3, device=dev)
+    ms_n = cuda_ms(lambda: gaussian_blur(frames, cost.sigma, cost.radius))
+    ms_1 = cuda_ms(lambda: gaussian_blur(goal, cost.sigma, cost.radius))
+    per_plan = cfg.opt_iter * blurred * (ms_n + ms_1)
+    k = torch.exp(-torch.arange(-cost.radius, cost.radius + 1, device=dev,
+                                dtype=torch.float32) ** 2 / (2 * cost.sigma ** 2))
+    k = (k / k.sum()).expand(3, 1, -1)
+    x = frames.permute(0, 3, 1, 2)
+    conv = lambda: F.conv2d(F.conv2d(x, k[..., None], padding=(cost.radius, 0),
+                                     groups=3),
+                            k[:, :, None], padding=(0, cost.radius), groups=3)
+    ref = gaussian_blur(frames, cost.sigma, cost.radius).permute(0, 3, 1, 2)
+    err = float((conv() - ref).abs().max())
+    ms_conv = cuda_ms(conv)
+    share = per_plan / busy_ms if busy_ms else None
+    print(f"blur ({cfg.action_candidates} frames of {h}x{w}x3, radius "
+          f"{cost.radius}): {ms_n:.4f} ms, the goal {ms_1:.4f} ms; "
+          f"{cfg.opt_iter} x {blurred} blurred steps = {per_plan:.2f} ms of "
+          "device time a plan"
+          + (f" = {share:.1%} of the profiled plan's {busy_ms:.1f} ms"
+             if share is not None else "")
+          + f"; as two 255-tap cuDNN depthwise convolutions {ms_conv:.4f} ms "
+          f"(max |conv - product| {err:.2g})")
+    return dict(ms_frames=ms_n, ms_goal=ms_1, blurred_steps=blurred,
+                ms_per_plan=per_plan, share_of_device_time=share,
+                cudnn_depthwise_ms=ms_conv, cudnn_depthwise_max_diff=err)
+
+
+def time_wmma_det(dev, launches, errs):
+    """The kernels line's entry for the WMMA kernel of csrc/conv_lstm_cell.cu,
+    which det's plans take (260 channels): device time per launch at det's
+    two shapes (their mean, as the plan launches each equally often), the
+    plain version's, the bound from the operations at 260 channels without
+    zero-border taps, and cuDNN's gate convolution alone."""
+    rows = []
+    for shape in DET_CELLS:
+        B, H, W, Cx, C, k = shape
+        x, h, c, w, b = cell_inputs(B, H, W, Cx, C, k, torch.bfloat16, dev, 7)
+        run = lambda fn: (lambda: fn(x, h, c, w, b))
+        ms = [cuda_ms(run(kernels.conv_lstm_cell)) for _ in range(2)]
+        plain = cuda_ms(run(kernels.conv_lstm_cell_plain))
+        xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = cuda_ms(lambda: F.conv2d(xh, w_oihw, b.to(torch.bfloat16),
+                                       padding=k // 2))
+        ops = 2.0 * B * valid_taps(H, W, k) * (Cx + C) * 4 * C
+        nbytes = 2 * (x.numel() + h.numel() + c.numel() + w.numel()
+                      + 2 * h.numel()) + 4 * b.numel()
+        bound, by = bound_ms(ops, PEAK_BF16, nbytes)
+        row = dict(B=B, k=k, Cx=Cx, C=C, ms=float(np.mean(ms)), ms_runs=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                   gflop=ops / 1e9, max_abs_err=errs[shape])
+        rows.append(row)
+        print(f"cell B={B} k={k} Cx=C={C} bf16 (det): WMMA kernel "
+              f"{row['ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in ms)}), "
+              f"plain {plain:.4f} ms, cuDNN gate conv {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}, {row['gflop']:.1f} GFLOP without the "
+              f"zero border) = {row['ms'] / bound:.1f}x the bound")
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    return dict(name="conv_lstm_cell_wmma", route="cuda", source=WMMA_SRC,
+                replaces=CELL_REPLACES, launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows), ms=mean("ms"),
+                plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+                bound_by=rows[0]["bound_by"], library_ms=mean("library_ms"),
+                per_shape=rows)
+
+
+def variant_train_step(name, dev):
+    """One train step at the training config of bench.py:136-156 (batch
+    128, window 6, bf16, remat conv) with the variant's fields: one warm-up
+    and 3 timed steps (host clock, each ending in a sync), no hand kernel."""
+    cfg = Config(**dict(TRAIN, **TRAIN_VARIANTS[name]))
+    model = get_model(cfg).init(cfg, seed=0, device=dev, train=True)
+    step, _ = make_train_step(cfg, model)
+    t0 = time.perf_counter()
+    batch = bench_batch(cfg, cfg.batch_size, 0, dev)
+    make_s = time.perf_counter() - t0
+    gen = torch.Generator(dev).manual_seed(0)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, 1.0, gen)["loss"]))
+        torch.cuda.synchronize()
+        if i:
+            seconds.append(time.perf_counter() - t0)
+    if any(kernels.launches.values()) or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} train steps launched {kernels.launches}, "
+                             f"losses {losses}")
+    med = statistics.median(seconds)
+    window = cfg.n_past + cfg.n_future
+    out = dict(step_s=med, step_s_runs=seconds,
+               frames_per_s=cfg.batch_size * window / med,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss=losses[-1], batch_seconds=make_s)
+    print(f"train {name} (remat conv, batch {cfg.batch_size}): step {med:.4f} "
+          "s (median of 3: " + ", ".join(f"{v:.4f}" for v in seconds)
+          + f"), {out['frames_per_s']:.1f} frames/s, peak {out['peak_gb']:.2f}"
+          f" GB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, 0 kernel launches"
+          + (f"; heatmaps made by create_heatmaps with the batch in "
+             f"{make_s:.2f} s" if cfg.model_use_heatmap else ""))
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_copy_and_resume():
+    """The trainer's --model copy baseline on the synthetic experiment
+    (finite metrics over full train and test epochs, PSNR finite or +inf,
+    no kernel launched);
+    then a det trainer at full width trains an epoch and saves, and a
+    second one, given that checkpoint by --dynamics_model_ckpt, starts
+    from its weights and step and trains on."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = dict(TRAIN, experiment="synthetic", batch_size=32,
+                test_batch_size=16, niter=1, epoch_size=2, video_length=12,
+                n_eval=6, eval_interval=10, checkpoint_interval=1)
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        tr = PredictionTrainer(Config(**dict(base, model="copy", log_dir=d,
+                                             jobname="copy")))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        copy = tr.train()
+        copy_s = time.perf_counter() - t0
+        tr.logger.close()
+        # finite metrics, but PSNR: +inf where a copied frame equals its
+        # target (a step in which nothing but the robot moved), as in JAX
+        if any(kernels.launches.values()) or not all(
+                np.isfinite(v) or (k.endswith("psnr") and v == np.inf)
+                for m in copy.values() for k, v in m.items()):
+            raise AssertionError(f"copy baseline {copy}, {kernels.launches}")
+        print(f"copy baseline ({copy_s:.1f} s): " + "; ".join(
+            f"{split} autoregressive PSNR {m['autoreg_psnr']:.2f}, SSIM "
+            f"{m['autoreg_ssim']:.4f}, world {m['autoreg_world_loss']:.5f}"
+            for split, m in copy.items()))
+        det = dict(base, model="det", log_dir=d)
+        first = PredictionTrainer(Config(**dict(det, jobname="det0")))
+        first.train()
+        path = ckpt.latest_checkpoint(first.log_dir)
+        first.logger.close()
+        cfg = Config(**dict(det, jobname="det1", dynamics_model_ckpt=path))
+        probe = PredictionTrainer(cfg)
+        probe.load_checkpoint(path)
+        for k, v in first.model.state_dict().items():
+            if not torch.equal(probe.model.state_dict()[k], v):
+                raise AssertionError(f"{k} differs after loading {path}")
+        probe.logger.close()
+        second = PredictionTrainer(cfg)
+        second.train()
+        second.logger.close()
+        per_epoch = cfg.epoch_size * (cfg.video_length // 6)
+        if probe._step != first._step or second._step != first._step + per_epoch:
+            raise AssertionError(f"steps: first {first._step}, loaded "
+                                 f"{probe._step}, trained on {second._step}")
+    print(f"--dynamics_model_ckpt: a det trainer loaded {os.path.basename(path)}"
+          f" (every tensor equal, step {probe._step}) and trained on to step "
+          f"{second._step}")
+    return dict(copy=copy, copy_seconds=copy_s, det_loaded_step=probe._step,
+                det_trained_to=second._step)
+
+
+def check_variants(dev):
+    """Phase 11 (see the module docstring). Returns its JSON line's dict
+    and the kernels line's WMMA entry."""
+    out = {"plans": {}}
+    det_errs = check_det_cells(dev)
+    for name in VARIANTS:
+        err, flips = small_cost_parity(name)
+        print(f"small f32 {name} rollout costs, GPU vs CPU: max |diff| / |cost|"
+              f" = {err:.3g} (tolerance {COST_RTOL}"
+              + (f", plus one 1/255 step for each of {flips} pixels on "
+                 "another blur step)" if name == "blur" else ")"))
+        out.setdefault("cost_parity", {})[name] = dict(rel_err=err, flips=flips)
+        if name != "blur":
+            err, launched = small_plan_parity(name)
+            print(f"small f32 {name} plan, GPU vs CPU: max |diff| = {err:.3g} "
+                  f"(tolerance {PLAN_TOL}); launches {launched}")
+            out.setdefault("plan_parity", {})[name] = err
+    for name in TRAIN_VARIANTS:
+        errs, _ = train_step_parity("cuda", **TRAIN_VARIANTS[name])
+        print(f"small f32 {name} train step, GPU vs CPU: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (tolerance {TRAIN_TOL}; gradients {GRAD_TOL_DEVICES} of each "
+            "leaf's norm)")
+        out.setdefault("train_parity", {})[name] = errs
+    det_launches = None
+    for name in VARIANTS:
+        cfg, policy, plans = variant_plans(name)
+        if name == "blur":
+            plans["blur"] = time_blur(cfg, dev, plans.get("busy_ms"))
+        if name == "det":
+            det_launches = (plans["launches"]["conv_lstm_cell"]
+                            - plans["launches"]["conv_lstm_cell_sm90"])
+        # the server's guarantee for every model it loads
+        checks = plan_checks(policy, repeats=2, batch_sizes=(2, 4))
+        print(f"{name} plans: one request twice, one plan; batched == single "
+              "bit for bit at R = 2 and 4")
+        plans["batched_diff"] = checks["batched"]
+        out["plans"][name] = plans
+    wmma = time_wmma_det(dev, det_launches, det_errs)
+    out["train"] = {name: variant_train_step(name, dev) for name in TRAIN_VARIANTS}
+    out["trainer"] = check_copy_and_resume()
+    return out, wmma
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -826,6 +1132,16 @@ def main() -> int:
     modes, flops = train_step_timing(dev)
     trainer = check_trainer()
     line["kernels"][1]["launches_trainer_eval"] = trainer["cell_launches"]
+
+    # the model variants: heatmaps, the blur cost, GroupNorm cells, det
+    phase("variants")
+    variants, wmma = check_variants(dev)
+    line["kernels"].append(wmma)
+    for entry, name in zip(line["kernels"][:2],
+                           ("capsule_mask_render", "conv_lstm_cell_sm90")):
+        entry["launches_variants"] = {
+            v: r["launches"][name] for v, r in variants["plans"].items()}
+    print(json.dumps({"variants": dict(variants, card=card)}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

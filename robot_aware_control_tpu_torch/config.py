@@ -97,7 +97,13 @@ class Config:
     movement_weight: float = 1.0
 
     # --- planner ---
+    # weighted|dense|inpaint|sparse|blackrobot|inpaint-blur|eef_inpaint|dontcare
     reward_type: str = "weighted"
+    # inpaint-blur: Gaussian sigma, the unblurred steps' cost scale, and the
+    # number of final rollout steps scored unblurred
+    blur_sigma: float = 10.0
+    unblur_cost_scale: float = 3.0
+    unblur_timestep: float = 1.0
     horizon: int = 5
     opt_iter: int = 10
     action_candidates: int = 30
@@ -130,6 +136,8 @@ class Config:
 
     # --- envs and control ---
     max_episode_length: int = 10
+    # the env's render size; the inpaint-blur cost's blur window follows it
+    img_dim: int = 128
 
     # --- port of the JAX package's additions ---
     # activations and conv weights at use; BatchNorm, LSTM biases and a

@@ -1,17 +1,21 @@
-"""Carry SVG parameters, BatchNorm statistics and optimizer state between
-the JAX package's layout and the port's.
+"""Carry SVG and det parameters, BatchNorm statistics and optimizer state
+between the JAX package's layout and the port's.
 
-The JAX model keeps parameters and BatchNorm statistics as nested dicts
+The JAX models keep parameters and BatchNorm statistics as nested dicts
 (and lists, for VGG stacks) of arrays: convolutions `{"w": HWIO, "b"}`,
-BatchNorm `{"scale", "bias"}` with state `{"mean", "var"}`, ConvLSTM cells
-`{"gates": {"w", "b"}}`. Its checkpoints flatten them to keys that
-`jax.tree_util.keystr` gives, such as `['encoder']['c1'][0]['conv']['w']`.
-The port's state dict is keyed by module paths:
+linears `{"w": (in, out), "b"}`, BatchNorm `{"scale", "bias"}` with state
+`{"mean", "var"}`, ConvLSTM cells `{"gates": {"w", "b"}}`, GroupNorm cells
+`{"ih", "hh": conv, "ih_gn", "hh_gn", "c_gn": {"scale", "bias"}}`. Their
+checkpoints flatten them to keys that `jax.tree_util.keystr` gives, such as
+`['encoder']['c1'][0]['conv']['w']`. The port's state dict is keyed by
+module paths:
 
-  * conv weights HWIO <-> OIHW (`F.conv2d`'s layout);
+  * conv weights HWIO <-> OIHW (`F.conv2d`'s layout), linear weights
+    (in, out) <-> (out, in) (`F.linear`'s);
   * ConvLSTM gate weights stay HWIO (k, k, in + hid, 4 hid), the CUDA
     cell's layout, so they are packed once here and never per launch;
-  * BatchNorm scale/bias/mean/var <-> weight/bias/running_mean/running_var.
+  * BatchNorm scale/bias/mean/var <-> weight/bias/running_mean/running_var,
+    GroupNorm scale/bias <-> weight/bias.
 
 `svg_state_dict` (nested trees) and `state_dict_from_flat` (keystr dicts)
 go from JAX to the port, `jax_flat_trees` back. The optimizer state maps
@@ -27,16 +31,22 @@ import re
 import numpy as np
 import torch
 
+from torch import nn
+
 from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.models.det import Det
 from robot_aware_control_tpu_torch.models.svg import SVG
-from robot_aware_control_tpu_torch.ops.lstm import ConvLSTMCell
-from robot_aware_control_tpu_torch.ops.nn import BatchNorm
+from robot_aware_control_tpu_torch.ops.lstm import ConvLSTMCell, GroupNorm
+from robot_aware_control_tpu_torch.ops.nn import BatchNorm, Linear
 from robot_aware_control_tpu_torch.utils.device import resolve_device
 
 _RENAME = {"b": "bias", "scale": "weight", "bias": "bias",
            "mean": "running_mean", "var": "running_var"}
 _BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
             "running_mean": ("bn", "mean"), "running_var": ("bn", "var")}
+# JAX layout -> port layout of a "w" leaf, by its rank: conv HWIO -> OIHW,
+# linear (in, out) -> (out, in)
+_TO_PORT = {4: (3, 2, 0, 1), 2: (1, 0)}
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
 
@@ -74,9 +84,10 @@ def _state_dict(leaves) -> dict:
             mod = mod[:-1]
             name = "weight" if leaf == "w" else _RENAME[leaf]
         elif leaf == "w":
-            if arr.ndim != 4:
-                raise ValueError(f"{'.'.join(path)}: expected HWIO, got {arr.shape}")
-            name, arr = "weight", arr.transpose(3, 2, 0, 1)
+            if arr.ndim not in _TO_PORT:
+                raise ValueError(f"{'.'.join(path)}: expected a conv (HWIO) or "
+                                 f"linear (in, out) weight, got {arr.shape}")
+            name, arr = "weight", arr.transpose(_TO_PORT[arr.ndim])
         else:
             name = _RENAME[leaf]
         sd[".".join(mod + [name])] = torch.tensor(np.ascontiguousarray(arr))
@@ -84,7 +95,8 @@ def _state_dict(leaves) -> dict:
 
 
 def svg_state_dict(params, bn_state) -> dict:
-    """JAX SVG (params, bn_state) -> the port's state dict (float32)."""
+    """A JAX model's (params, bn_state) -> the port's state dict (float32);
+    svg and det trees alike."""
     return _state_dict(list(_leaves(params)) + list(_leaves(bn_state)))
 
 
@@ -96,63 +108,70 @@ def state_dict_from_flat(params_flat: dict, bn_flat: dict) -> dict:
         for k, v in list(params_flat.items()) + list(bn_flat.items()))
 
 
-def _jax_leaf(model: SVG, name: str):
-    """A port state-dict entry -> (tree name, JAX path, whether the array
-    is a conv weight that transposes OIHW <-> HWIO)."""
+def _jax_leaf(model: nn.Module, name: str):
+    """A port state-dict entry -> (tree name, JAX path, the permutation
+    from the port's layout to JAX's, or None)."""
     *mod, leaf = name.split(".")
     module = model.get_submodule(".".join(mod))
     path = [int(p) if p.isdigit() else p for p in mod]
     if isinstance(module, ConvLSTMCell):
-        return "params", path + ["gates", "w" if leaf == "weight" else "b"], False
+        return "params", path + ["gates", "w" if leaf == "weight" else "b"], None
     if isinstance(module, BatchNorm):
         tree, jleaf = _BN_LEAF[leaf]
-        return tree, path + [jleaf], False
-    return "params", path + ["w" if leaf == "weight" else "b"], leaf == "weight"
+        return tree, path + [jleaf], None
+    if isinstance(module, GroupNorm):
+        return "params", path + ["scale" if leaf == "weight" else "bias"], None
+    if leaf != "weight":
+        return "params", path + ["b"], None
+    perm = (1, 0) if isinstance(module, Linear) else (2, 3, 1, 0)
+    return "params", path + ["w"], perm
 
 
-def _to_jax(t: torch.Tensor, conv: bool) -> np.ndarray:
+def _to_jax(t: torch.Tensor, perm) -> np.ndarray:
     """A copy (never a view of the live tensor) in the JAX layout."""
     a = t.detach().float().cpu().numpy()
-    return np.array(a.transpose(2, 3, 1, 0) if conv else a, order="C")
+    return np.array(a if perm is None else a.transpose(perm), order="C")
 
 
-def _from_jax(a, conv: bool) -> torch.Tensor:
+def _from_jax(a, perm) -> torch.Tensor:
     a = np.asarray(a, np.float32)
-    return torch.tensor(np.ascontiguousarray(a.transpose(3, 2, 0, 1) if conv else a))
+    if perm is not None:
+        a = a.transpose(np.argsort(perm))
+    return torch.tensor(np.ascontiguousarray(a))
 
 
-def jax_flat_trees(model: SVG):
+def jax_flat_trees(model: nn.Module):
     """The port's model -> ({keystr: array} params, {keystr: array} bn),
     float32 numpy in the JAX layouts."""
     trees = {"params": {}, "bn": {}}
     for name, t in model.state_dict().items():
-        tree, path, conv = _jax_leaf(model, name)
-        trees[tree][keystr(path)] = _to_jax(t, conv)
+        tree, path, perm = _jax_leaf(model, name)
+        trees[tree][keystr(path)] = _to_jax(t, perm)
     return trees["params"], trees["bn"]
 
 
-def _param_paths(model: SVG):
+def _param_paths(model: nn.Module):
     for name, p in model.named_parameters():
-        _, path, conv = _jax_leaf(model, name)
-        yield p, keystr(path), conv
+        _, path, perm = _jax_leaf(model, name)
+        yield p, keystr(path), perm
 
 
-def optimizer_to_jax(cfg: Config, model: SVG, optimizer) -> dict:
+def optimizer_to_jax(cfg: Config, model: nn.Module, optimizer) -> dict:
     """The optimizer's state -> {keystr: array} of optax's state tree for
     cfg.optimizer (zeros and count 0 before the first step)."""
     flat = {}
     if cfg.optimizer == "sgd":
         return flat
     count = 0
-    for p, key, conv in _param_paths(model):
+    for p, key, perm in _param_paths(model):
         st = optimizer.state.get(p, {})
         zeros = lambda: torch.zeros_like(p)
         if cfg.optimizer == "adam":
             count = int(st.get("step", 0))
-            flat[f"[0].mu{key}"] = _to_jax(st.get("exp_avg", zeros()), conv)
-            flat[f"[0].nu{key}"] = _to_jax(st.get("exp_avg_sq", zeros()), conv)
+            flat[f"[0].mu{key}"] = _to_jax(st.get("exp_avg", zeros()), perm)
+            flat[f"[0].nu{key}"] = _to_jax(st.get("exp_avg_sq", zeros()), perm)
         elif cfg.optimizer == "rmsprop":
-            flat[f"[0].nu{key}"] = _to_jax(st.get("nu", zeros()), conv)
+            flat[f"[0].nu{key}"] = _to_jax(st.get("nu", zeros()), perm)
         else:
             raise ValueError(f"Unknown optimizer: {cfg.optimizer}")
     if cfg.optimizer == "adam":
@@ -161,12 +180,12 @@ def optimizer_to_jax(cfg: Config, model: SVG, optimizer) -> dict:
 
 
 @torch.no_grad()
-def optimizer_from_jax(cfg: Config, model: SVG, optimizer, flat: dict):
+def optimizer_from_jax(cfg: Config, model: nn.Module, optimizer, flat: dict):
     """Loads optax's state ({keystr: array}) into the optimizer."""
     if cfg.optimizer == "sgd":
         return
-    for p, key, conv in _param_paths(model):
-        like = lambda k: _from_jax(flat[f"[0].{k}{key}"], conv).to(p)
+    for p, key, perm in _param_paths(model):
+        like = lambda k: _from_jax(flat[f"[0].{k}{key}"], perm).to(p)
         if cfg.optimizer == "adam":
             optimizer.state[p] = {
                 "step": torch.tensor(float(flat["[0].count"])),
@@ -177,9 +196,20 @@ def optimizer_from_jax(cfg: Config, model: SVG, optimizer, flat: dict):
             raise ValueError(f"Unknown optimizer: {cfg.optimizer}")
 
 
+def _from_jax_trees(model: nn.Module, params, bn_state):
+    model.load_state_dict(svg_state_dict(params, bn_state), strict=True)
+    return model.eval().requires_grad_(False)
+
+
 def svg_from_jax(cfg: Config, params, bn_state, device="cuda") -> SVG:
     """An inference-mode SVG on `device` holding the JAX parameters
     (a strict load: every port parameter and statistic must be given)."""
-    model = SVG(cfg, device=resolve_device(device))
-    model.load_state_dict(svg_state_dict(params, bn_state), strict=True)
-    return model.eval().requires_grad_(False)
+    return _from_jax_trees(SVG(cfg, device=resolve_device(device)), params,
+                           bn_state)
+
+
+def det_from_jax(cfg: Config, params, bn_state, device="cuda") -> Det:
+    """An inference-mode det model on `device` holding the JAX parameters
+    (a strict load)."""
+    return _from_jax_trees(Det(cfg, device=resolve_device(device)), params,
+                           bn_state)

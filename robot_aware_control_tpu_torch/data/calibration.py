@@ -1,4 +1,5 @@
-"""Camera calibration registry for the viewpoints the planner renders from.
+"""Camera calibration registry for the viewpoints the planner and the
+heatmaps render from.
 
 The reference's measured per-robot/viewpoint camera_to_world extrinsics and
 the intrinsics of its cameras (reference: src/utils/camera_calibration.py;
@@ -34,14 +35,18 @@ def look_at(eye, target, up=(0, 0, 1.0)):
     return c2w
 
 
+def intrinsics(fx, fy, cx, cy):
+    K = np.eye(3)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = fx, fy, cx, cy
+    return K
+
+
 # intrinsics at native sensor resolutions (resized by consumers)
 CAM_INTRINSICS: Dict[str, np.ndarray] = {
     # captured 640x480 images for locobot (intel realsense d435)
-    "intel_realsense_d435": np.array(
-        [[612.45, 0.0, 330.55], [0.0, 612.56, 248.61], [0.0, 0.0, 1.0]]),
+    "intel_realsense_d435": intrinsics(612.45, 612.56, 330.55, 248.61),
     # captured 320x240 images in robonet (logitech c420)
-    "logitech_c420": np.array(
-        [[320.75, 0.0, 160.0], [0.0, 320.75, 120.0], [0.0, 0.0, 1.0]]),
+    "logitech_c420": intrinsics(320.75, 320.75, 160.0, 120.0),
 }
 CAM_RESOLUTION: Dict[str, tuple] = {
     "intel_realsense_d435": (640, 480),
@@ -187,3 +192,15 @@ def get_world_to_camera(key: str) -> np.ndarray:
 # seed the registry with the viewpoints the reference refers to by name
 for _key in list(_MEASURED_CAMERA_TO_WORLD) + ["synthetic_c0"]:
     get_camera_to_world(_key)
+
+
+def robot_camera_info(robot: str, viewpoint: str):
+    """(world2cam, intrinsics K, native resolution) for a robot viewpoint
+    (reference mapping: robonet_dataset.py:497-518)."""
+    if robot == "locobot":
+        key, cam = "locobot_c0", "intel_realsense_d435"
+    elif robot in ("sawyer", "baxter", "widowx"):
+        key, cam = f"{robot}_{viewpoint}", "logitech_c420"
+    else:
+        key, cam = f"{robot}_{viewpoint}", "intel_realsense_d435"
+    return get_world_to_camera(key), CAM_INTRINSICS[cam], CAM_RESOLUTION[cam]

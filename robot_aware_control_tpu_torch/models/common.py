@@ -6,6 +6,34 @@ from __future__ import annotations
 import torch
 
 from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.ops.lstm import ConvLSTMCell
+from robot_aware_control_tpu_torch.ops.nn import BatchNorm, Conv2d, Linear
+
+
+@torch.no_grad()
+def init_weights(model, seed: int, train: bool):
+    """The reference's init (reference: src/prediction/models/base.py:26-35):
+    convolution, cell and linear weights N(0, 0.02), biases 0, BatchNorm
+    scale N(1, 0.02) (GroupNorm keeps scale 1, bias 0, as the JAX init),
+    drawn on the CPU from `seed` in float32 in module order and copied into
+    each parameter's own type and device. Returns the model in train mode
+    if `train`, else in inference mode (eval, no grad)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(p, mean=0.0, std=0.02):
+        p.copy_(mean + std * torch.randn(p.shape, generator=gen))
+
+    for m in model.modules():
+        if isinstance(m, (Conv2d, ConvLSTMCell, Linear)):
+            normal(m.weight)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            normal(m.weight, mean=1.0)
+            m.bias.zero_()
+    if train:
+        return model.train()
+    return model.eval().requires_grad_(False)
 
 
 def skip_zeros(cfg: Config, batch: int, dtype=torch.float32, device=None):

@@ -18,8 +18,11 @@ updates in `out["bn_stats"]`, in the order the JAX step threads its state:
 the current-frame encoder, the next-frame encoder, the decoder; the
 ConvLSTM cells take the autograd path. With `train=False` BatchNorm uses
 its running statistics and the cells the hand kernel when
-cfg.fused_lstm. As in the JAX package the posterior encodes the *next*
-frame unless cfg.posterior_use_current_frame.
+cfg.fused_lstm (GroupNorm cells, cfg.lstm_group_norm, never take it). As
+in the JAX package the posterior encodes the *next* frame unless
+cfg.posterior_use_current_frame. The encoder's input is the frame, then
+its heatmap channels (cfg.model_use_heatmap, with the next frame's under
+cfg.model_use_future_heatmap), then its mask channels.
 
 A model built for inference (`init`, `convert.svg_from_jax`) stores its
 convolution weights in the compute dtype; one built for training
@@ -36,9 +39,10 @@ import torch
 from torch import nn
 
 from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.models.common import init_weights
 from robot_aware_control_tpu_torch.ops import lstm as L
 from robot_aware_control_tpu_torch.ops.encoders import ConvDecoder, ConvEncoder
-from robot_aware_control_tpu_torch.ops.nn import BatchNorm, Conv2d
+from robot_aware_control_tpu_torch.ops.nn import Conv2d
 from robot_aware_control_tpu_torch.utils.device import resolve_device
 
 
@@ -95,12 +99,6 @@ def _encoder_input(cfg: Config, image, mask, heatmap):
 class SVG(nn.Module):
     def __init__(self, cfg: Config, device=None, param_dtype=None):
         super().__init__()
-        if cfg.lstm_group_norm:
-            raise NotImplementedError(
-                "lstm_group_norm: the GroupNorm ConvLSTM cell is not ported yet")
-        if cfg.model_use_heatmap:
-            raise NotImplementedError(
-                "model_use_heatmap: heatmap conditioning is not ported yet")
         self.cfg = cfg
         dt = param_dtype or compute_dtype(cfg)
         g = cfg.g_dim
@@ -109,9 +107,10 @@ class SVG(nn.Module):
         self.frame_in = Conv2d(_lstm_channels(cfg), g, 3, dtype=dt, device=device)
         self.prior_in = Conv2d(_prior_channels(cfg), g, 3, dtype=dt, device=device)
         self.post_in = Conv2d(_post_channels(cfg), g, 3, dtype=dt, device=device)
-        self.frame_lstm = L.ConvLSTM(g, g, dt, device)
-        self.prior = L.GaussianConvLSTM(g, g, cfg.z_dim, dt, device)
-        self.posterior = L.GaussianConvLSTM(g, g, cfg.z_dim, dt, device)
+        gn = cfg.lstm_group_norm
+        self.frame_lstm = L.ConvLSTM(g, g, dt, device, gn)
+        self.prior = L.GaussianConvLSTM(g, g, cfg.z_dim, dt, device, gn)
+        self.posterior = L.GaussianConvLSTM(g, g, cfg.z_dim, dt, device, gn)
 
     def forward(self, carry: Carry, image, mask, robot, heatmap, action,
                 generator: Optional[torch.Generator] = None, next_image=None,
@@ -187,32 +186,13 @@ class SVG(nn.Module):
         return out, Carry(frame_carry, prior_carry, post_carry)
 
 
-@torch.no_grad()
 def init(cfg: Config, seed: int = 0, device="cuda", train: bool = False) -> SVG:
-    """A randomly initialised SVG model on `device` with the reference's
-    SVG init (reference: src/prediction/models/base.py:26-35): weights
-    N(0, 0.02), biases 0, BatchNorm scale N(1, 0.02), drawn on the CPU from
-    `seed` in float32 and copied into each parameter's own type and device.
-    In inference mode (no grad, weights in the compute dtype) unless
-    `train`: then float32 parameters that require grad."""
+    """A randomly initialised SVG model on `device` (models/common.py:
+    `init_weights`). In inference mode (no grad, weights in the compute
+    dtype) unless `train`: then float32 parameters that require grad."""
     model = SVG(cfg, device=resolve_device(device),
                 param_dtype=torch.float32 if train else None)
-    gen = torch.Generator().manual_seed(seed)
-
-    def normal(p, mean=0.0, std=0.02):
-        p.copy_(mean + std * torch.randn(p.shape, generator=gen))
-
-    for m in model.modules():
-        if isinstance(m, (Conv2d, L.ConvLSTMCell)):
-            normal(m.weight)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, BatchNorm):
-            normal(m.weight, mean=1.0)
-            m.bias.zero_()
-    if train:
-        return model.train()
-    return model.eval().requires_grad_(False)
+    return init_weights(model, seed, train)
 
 
 def init_carry(cfg: Config, batch: int, dtype=torch.float32,

@@ -1,9 +1,9 @@
 """Conv LSTM cells with explicit state (NHWC), counterpart of
 `robot_aware_control_tpu/ops/lstm.py` (reference:
-src/prediction/models/lstm.py:109-149, 201-286).
+src/prediction/models/lstm.py:109-286).
 
-A cell has two paths, chosen as `lstm.py:conv_lstm` chooses between the
-fused Pallas cell and the XLA cell:
+A plain cell has two paths, chosen as `lstm.py:conv_lstm` chooses between
+the fused Pallas cell and the XLA cell:
 
   * fused (inference: planning and eval, `cfg.fused_lstm and not train`):
     `ops.kernels.conv_lstm_cell`, the CUDA kernel for GPU tensors and its
@@ -16,6 +16,13 @@ fused Pallas cell and the XLA cell:
 A cell keeps its gate weights in the kernel's layout, HWIO (k, k, in + hid,
 4 hid), with gate order i, f, o, g, and its bias in float32; both paths
 cast the weights to x's type at use.
+
+The GroupNorm cell (`--lstm_group_norm`, `lstm.py:norm_conv_lstm_cell`)
+never takes the kernel, as the JAX package keeps it on the XLA path
+(`lstm.py:106-113`): two convolutions, `ih` on x and `hh` on h, each
+followed by its own GroupNorm of the 4 hid gates, and a third GroupNorm on
+c'. It runs on PyTorch's convolutions and GroupNorm in training and at
+inference alike.
 """
 
 from __future__ import annotations
@@ -66,14 +73,62 @@ class ConvLSTMCell(nn.Module):
         return h_new, (h_new, c_new)
 
 
-class ConvLSTM(nn.Module):
-    """2-cell stack: kernel 5 then kernel 3 (reference: lstm.py:206-212)."""
+GROUPS = 16  # the JAX group_norm's default (lstm.py:54)
+GN_EPS = 1e-5
 
-    def __init__(self, in_ch: int, hid_ch: int, dtype=torch.float32,
+
+class GroupNorm(nn.Module):
+    """GroupNorm of NHWC activations over 16 groups of channels
+    (`lstm.py:group_norm`): population statistics, scale and bias in
+    float32, the result cast back to x's type."""
+
+    def __init__(self, c: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c, device=device))
+        self.bias = nn.Parameter(torch.zeros(c, device=device))
+
+    def forward(self, x):
+        y = F.group_norm(x.float().permute(0, 3, 1, 2), GROUPS, self.weight,
+                         self.bias, GN_EPS)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class NormConvLSTMCell(nn.Module):
+    """The GroupNorm-gated cell (`lstm.py:norm_conv_lstm_cell`, reference:
+    lstm.py:151-198): gates = GN(conv(x)) + GN(conv(h)), each normalised
+    term in x's type and their sum too; c' = GN(f c + i g); h' = o tanh(c')."""
+
+    def __init__(self, in_ch: int, hid_ch: int, k: int, dtype=torch.float32,
                  device=None):
         super().__init__()
-        self.cell0 = ConvLSTMCell(in_ch, hid_ch, 5, dtype, device)
-        self.cell1 = ConvLSTMCell(hid_ch, hid_ch, 3, dtype, device)
+        self.ih = Conv2d(in_ch, 4 * hid_ch, k, dtype=dtype, device=device)
+        self.hh = Conv2d(hid_ch, 4 * hid_ch, k, dtype=dtype, device=device)
+        self.ih_gn = GroupNorm(4 * hid_ch, device)
+        self.hh_gn = GroupNorm(4 * hid_ch, device)
+        self.c_gn = GroupNorm(hid_ch, device)
+
+    def forward(self, x, state, fused: bool = False):
+        """state = (h, c). `fused` is ignored: no kernel takes this cell.
+        Returns (h_new, (h_new, c_new))."""
+        h, c = state
+        g = self.ih_gn(self.ih(x)) + self.hh_gn(self.hh(h.to(x.dtype)))
+        i, f, o, gc = g.chunk(4, -1)
+        c_new = torch.sigmoid(f) * c.to(x.dtype) + torch.sigmoid(i) * torch.tanh(gc)
+        c_new = self.c_gn(c_new)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        return h_new, (h_new, c_new)
+
+
+class ConvLSTM(nn.Module):
+    """2-cell stack: kernel 5 then kernel 3 (reference: lstm.py:206-212),
+    of GroupNorm cells with `group_norm`."""
+
+    def __init__(self, in_ch: int, hid_ch: int, dtype=torch.float32,
+                 device=None, group_norm: bool = False):
+        super().__init__()
+        cell = NormConvLSTMCell if group_norm else ConvLSTMCell
+        self.cell0 = cell(in_ch, hid_ch, 5, dtype, device)
+        self.cell1 = cell(hid_ch, hid_ch, 3, dtype, device)
 
     def forward(self, x, state, fused: bool = True):
         s0, s1 = state
@@ -103,9 +158,9 @@ class GaussianConvLSTM(nn.Module):
     (reference: lstm.py:260-286)."""
 
     def __init__(self, in_ch: int, hid_ch: int, out_ch: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, group_norm: bool = False):
         super().__init__()
-        self.lstm = ConvLSTM(in_ch, hid_ch, dtype, device)
+        self.lstm = ConvLSTM(in_ch, hid_ch, dtype, device, group_norm)
         self.mu = Conv2d(hid_ch, out_ch, 3, dtype=dtype, device=device)
         self.logvar = Conv2d(hid_ch, out_ch, 3, dtype=dtype, device=device)
 

@@ -68,6 +68,20 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class Linear(nn.Module):
+    """x @ w + b over the last axis (JAX `nn.linear`), the weight in
+    `F.linear`'s (out, in) layout and cast to x's type at use."""
+
+    def __init__(self, din: int, dout: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(dout, din, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.empty(dout, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over N, H, W: (x - mean) * rsqrt(var + eps) * scale + bias
     in float32, cast back to x's type. With `stats` None it uses the

@@ -23,7 +23,7 @@ the top-K by reward and refits. Preserved semantics:
 Random draws come from a `torch.Generator` on the device per request,
 seeded with cfg.seed + 7919 * ep_num + step as the JAX package seeds its
 key: per iteration the action noise, then per chunk of candidates the
-prior's noise of each model step.
+prior's noise of each model step (none for det, which has no prior).
 
 `get_action_batched` plans R requests together: per iteration one rollout
 of R x N candidates (R x chunk with chunking) through the same kernels,
@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.models.registry import is_stochastic
 from robot_aware_control_tpu_torch.planning.rollout import (
     RolloutEngine,
     request_inputs,
@@ -143,6 +144,7 @@ class CEMPolicy:
         mean = torch.stack([p[2] for p in preps])
         std = torch.stack([p[3] for p in preps])
         prior = (chunk, cfg.feat_height, cfg.feat_width, cfg.z_dim)
+        stochastic = is_stochastic(cfg)
         for i in range(self.opt_iter):
             eps = torch.stack([noise[i] if noise is not None else torch.randn(
                 (N,) + tuple(mean.shape[1:]), generator=g, device=dev)
@@ -155,10 +157,11 @@ class CEMPolicy:
             sum_cost = []
             for s in range(0, N, chunk):
                 # each request's prior noise, one draw a model step, as the
-                # model would draw it
+                # model would draw it (det draws nothing)
                 eps_prior = torch.cat([torch.stack([
                     torch.randn(prior, generator=g, device=dev)
-                    for _ in range(T - 1)]) for g in gens], 1)
+                    for _ in range(T - 1)]) for g in gens], 1
+                ) if stochastic else None
                 cands = padded[:, s:s + chunk].reshape(
                     (R * chunk,) + padded.shape[2:])
                 sum_cost.append(self.engine(

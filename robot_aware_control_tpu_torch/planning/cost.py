@@ -15,6 +15,8 @@ Returns (N,) float32 rewards.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from robot_aware_control_tpu_torch.config import Config
@@ -55,6 +57,69 @@ def img_dontcare_cost(cfg: Config, curr_img, goal_img, curr_mask, goal_mask):
     if cfg.img_cost_world_norm:
         loss = loss / torch.clamp(_bsum(keep), min=1.0)
     return -loss
+
+
+def _gaussian_kernel1d(sigma: float, radius: int):
+    xs = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    k = torch.exp(-(xs ** 2) / (2.0 * sigma ** 2))
+    return k / k.sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_matrix(n: int, sigma: float, radius: int, device: str):
+    """The (n, n) float64 matrix M with (M @ x)[i] = sum_t k[t] x[i + t -
+    radius] over the in-image taps: a "SAME" convolution with the float32
+    kernel k of `radius`, its zero-padded taps left out."""
+    k = _gaussian_kernel1d(sigma, radius).double()
+    off = torch.arange(n)[None, :] - torch.arange(n)[:, None]
+    m = torch.where(off.abs() <= radius, k[(off + radius).clamp(0, 2 * radius)],
+                    torch.zeros((), dtype=torch.float64))
+    return m.to(device)
+
+
+def gaussian_blur(img, sigma: float, radius: int):
+    """Separable depthwise gaussian blur of (N, H, W, C) images with a
+    (2 radius + 1)-tap kernel, "SAME" (JAX `cost.py:gaussian_blur`); returns
+    float32. Each pass is a product with a banded (H, H) or (W, W) matrix,
+    not a convolution: at the default radius of 127 most of a 255-tap
+    kernel lies on the padding of a 48x64 image. The products run in
+    float64, which no TF32 setting touches: the inpaint-blur cost floors
+    255 x the blur, so a sum off by TF32's 10-bit rounding would move
+    pixels across 1/255 steps."""
+    x = img.double()
+    dev = str(x.device)
+    x = torch.einsum("ij,njwc->niwc", _blur_matrix(x.shape[1], sigma, radius,
+                                                   dev), x)
+    x = torch.einsum("ij,nhjc->nhic", _blur_matrix(x.shape[2], sigma, radius,
+                                                   dev), x)
+    return x.float()
+
+
+class InpaintBlurCost:
+    """Gaussian-blurred image MSE cost of the inpaint-blur reward (JAX
+    `cost.py:InpaintBlurCost`; reference: src/prediction/losses.py:109-154):
+    blur with sigma = blur_sigma over the reference's window, floor to 1/255
+    steps (the reference's (255 * gaussian(...)).astype(np.uint8)), then
+    -MSE per image; an unblurred step costs -unblur_cost_scale * MSE.
+    Returns (N,) float32."""
+
+    def __init__(self, cfg: Config):
+        self.sigma = cfg.blur_sigma
+        self.unblur_cost_scale = cfg.unblur_cost_scale
+        # radius from the reference's truncate math: (w-1)/2 - 0.5 pixels
+        self.radius = max(int(((cfg.img_dim * 2 - 1) / 2 - 0.5)), 1)
+
+    def __call__(self, img, goal, blur: bool = True):
+        img, goal = img.float(), goal.float()
+        if img.dim() == 3:
+            img = img[None]
+        if goal.dim() == 3:
+            goal = goal[None]
+        if not blur:
+            return -self.unblur_cost_scale * ((img - goal) ** 2).mean((1, 2, 3))
+        floor = lambda x: torch.floor(
+            255.0 * gaussian_blur(x, self.sigma, self.radius)) / 255.0
+        return -((floor(img) - floor(goal)) ** 2).mean((1, 2, 3))
 
 
 def _mask2d(mask, like):
@@ -115,20 +180,24 @@ class RobotWorldCost:
     L2. Returns (N,) rewards."""
 
     def __init__(self, cfg: Config):
-        if cfg.reward_type == "inpaint-blur":
-            raise NotImplementedError(
-                "the inpaint-blur cost (Gaussian blur) is not ported yet")
         self.cfg = cfg
         self.robot_w = cfg.robot_cost_weight
         self.world_w = cfg.world_cost_weight
         self.reward_type = cfg.reward_type
+        self.blur = (InpaintBlurCost(cfg) if cfg.reward_type == "inpaint-blur"
+                     else None)
 
     def world_cost(self, curr_img, goal_img, curr_mask=None, goal_mask=None,
-                   background=None):
+                   background=None, blur: bool = True):
+        """`blur` selects the inpaint-blur cost's blurred branch (the
+        rollout unblurs its last `unblur_timestep` steps); other rewards
+        ignore it."""
         rt, cfg = self.reward_type, self.cfg
         if rt == "dontcare":
             return img_dontcare_cost(cfg, curr_img, goal_img, curr_mask,
                                      goal_mask)
+        if rt == "inpaint-blur":
+            return self.blur(curr_img, goal_img, blur=blur)
         if rt in ("inpaint", "eef_inpaint"):
             return img_inpaint_cost(cfg, curr_img, goal_img, curr_mask,
                                     background)
@@ -145,11 +214,13 @@ class RobotWorldCost:
         return img_l2_cost(cfg, curr_img, goal_img)
 
     def __call__(self, curr_img, goal_img, curr_mask=None, goal_mask=None,
-                 curr_state=None, goal_state=None, background=None):
+                 curr_state=None, goal_state=None, background=None,
+                 blur: bool = True):
         total = 0.0
         if self.robot_w != 0 and curr_state is not None and goal_state is not None:
             total = total + self.robot_w * robot_l2_cost(curr_state, goal_state)
         if self.world_w != 0:
             total = total + self.world_w * self.world_cost(
-                curr_img, goal_img, curr_mask, goal_mask, background=background)
+                curr_img, goal_img, curr_mask, goal_mask, background=background,
+                blur=blur)
         return total

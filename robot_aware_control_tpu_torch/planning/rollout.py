@@ -2,9 +2,11 @@
 
 Counterpart of `robot_aware_control_tpu/planning/rollout.py:RolloutEngine`
 (reference: src/cem/trajectory_sampler.py:36-199) for the locobot planar
-path: eef integration, batched analytic IK, capsule mask rendering, T model
-steps, compositing and cost, with the candidates as the batch axis and a
-Python loop over the horizon. Semantics kept from the reference:
+path: eef integration, batched analytic IK, capsule mask rendering (and
+eef heatmaps for heatmap-conditioned models), T model steps of the
+configured family (svg or det), compositing and cost, with the candidates
+as the batch axis and a Python loop over the horizon. Semantics kept from
+the reference:
 
   * thick masks for model input and cost (predict_batch(..., thick=True)),
   * robot-pixel blackout of the model input when a dontcare loss /
@@ -111,8 +113,6 @@ class RolloutEngine:
                  default_pitch: float = lk.DEFAULT_PITCH,
                  default_roll: float = lk.DEFAULT_ROLL,
                  pick: bool = False, device="cuda"):
-        if cfg.model_use_heatmap:
-            raise NotImplementedError("heatmap conditioning is not ported yet")
         if cfg.experiment in ("control_franka", "control_wx250s") and not pick:
             raise NotImplementedError(
                 f"{cfg.experiment}: chain-robot rollouts wait for "
@@ -204,6 +204,10 @@ class RolloutEngine:
         use_robot_cost = cfg.robot_cost_weight != 0 and goal_states is not None
         if goal_masks is None:
             goal_masks = torch.zeros(goal_imgs.shape[:-1] + (1,), device=dev)
+        # heatmap conditioning from the predicted states (the reference
+        # plans with heatmap=None, trajectory_sampler.py:135)
+        heatmaps = (self.renderer_thick.render_heatmaps(states_raw[..., :3])
+                    if cfg.model_use_heatmap else [None] * (T + 1))
 
         curr = per_row(start_img).to(self.dtype)
         carry = get_model(cfg).init_carry(cfg, B, self.dtype, dev)
@@ -213,20 +217,24 @@ class RolloutEngine:
             model_in = zero_robot_region(masks[t], curr) if blackout else curr
             m_in, r_in, hm_in = _conditioning(
                 cfg, masks[t], masks[t + 1], states[t], states[t + 1],
-                None, None)
+                heatmaps[t], heatmaps[t + 1])
             with conv_rows(n if R > 1 else None):
                 out, carry = _model_step(
                     cfg, model, carry, model_in, m_in, r_in, hm_in,
                     actions_tna[t], generator, sample_mean=cfg.sample_mean,
                     noise=None if eps_prior is None else (eps_prior[t], None))
             curr = composite(cfg, out["x_pred"], curr).to(self.dtype)
+            # inpaint-blur: the last unblur_timestep steps score unblurred
+            # (the switch the reference documents, config/__init__.py:66)
+            blur = t < T - cfg.unblur_timestep
             rewards.append(torch.cat([self.cost(
                 curr[r * n:(r + 1) * n], goal_imgs[r, t],
                 curr_mask=masks[t + 1, r * n:(r + 1) * n],
                 goal_mask=goal_masks[r, t],
                 curr_state=(states_raw[t + 1, r * n:(r + 1) * n]
                             if use_robot_cost else None),
-                goal_state=goal_states[r, t] if use_robot_cost else None)
+                goal_state=goal_states[r, t] if use_robot_cost else None,
+                blur=blur)
                 for r in range(R)]))
             if ret_obs:
                 obs.append(curr)

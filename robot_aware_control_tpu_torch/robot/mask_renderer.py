@@ -109,3 +109,22 @@ class CapsuleMaskRenderer:
         flat = segs.reshape((-1,) + segs.shape[-2:]).float().contiguous()
         masks = kernels.capsule_mask_render(flat, self.h, self.w)
         return masks.reshape(lead + (self.h, self.w, 1))
+
+    def render_heatmaps(self, eef, sx=5.0, sy=5.0, height=100.0):
+        """eef (..., 3) raw world positions -> (..., h, w, 1) float32 eef
+        gaussian heatmaps on the renderer's device (JAX
+        `mask_renderer.py:render_heatmaps`): the data layer's gaussian
+        (data/heatmaps.py) on the renderer's pixel centres less 0.5, zero
+        where the eef projects outside the image. The planner conditions
+        heatmap-trained models on them, rendered from predicted states."""
+        u, v, _ = self._project(eef)
+        dev = u.device
+        px = (torch.arange(self.w, dtype=torch.float32, device=dev) + 0.5) - 0.5
+        py = (torch.arange(self.h, dtype=torch.float32, device=dev) + 0.5) - 0.5
+        ue, ve = u[..., None, None], v[..., None, None]
+        g = height / (2.0 * np.pi * sx * sy) * torch.exp(
+            -((px - ue) ** 2 / (2 * sx ** 2)
+              + (py[:, None] - ve) ** 2 / (2 * sy ** 2)))
+        g = torch.clamp(g, 0.0, 1.0)
+        in_frame = (u >= 0) & (u < self.w) & (v >= 0) & (v < self.h)
+        return (g * in_frame[..., None, None])[..., None].float()

@@ -6,11 +6,12 @@ One call of a train step is one window and one optimizer step, as in the
 JAX package: scheduled sampling (one Bernoulli per step for the whole
 batch, ground truth at the first step), robot-pixel blackout of the model
 inputs when a dontcare loss or black_robot_input is active, future-mask
-conditioning (duplicated at the target step), the skip frozen after n_past
-frames, the composite with the un-blacked input, loss = Σ recon + β Σ KL,
-metrics divided by n_future. The JAX step is one `lax.scan`; here a Python
-loop over the window's steps queues the same work, and the device
-arrays never come back to the host inside a step.
+and future-heatmap conditioning (duplicated at the target step), the skip
+frozen after n_past frames, the composite with the un-blacked input,
+loss = Σ recon + β Σ KL (svg; det has no KL term), metrics divided by
+n_future. The copy baseline has an eval step alone. The JAX step is one
+`lax.scan`; here a Python loop over the window's steps queues the same
+work, and the device arrays never come back to the host inside a step.
 
 Training runs the autograd ConvLSTM cell, as the JAX train step runs the
 XLA cell; the eval step runs the hand kernel (`cfg.fused_lstm`).
@@ -36,8 +37,9 @@ from torch.utils.checkpoint import (
 )
 
 from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.models import copy_model
 from robot_aware_control_tpu_torch.models.common import composite, skip_zeros
-from robot_aware_control_tpu_torch.models.registry import get_model
+from robot_aware_control_tpu_torch.models.registry import get_model, is_stochastic
 from robot_aware_control_tpu_torch.models.svg import compute_dtype
 from robot_aware_control_tpu_torch.ops import losses as L
 from robot_aware_control_tpu_torch.ops import metrics as M
@@ -84,11 +86,20 @@ def make_optimizer(cfg: Config, params):
     raise ValueError(f"Unknown optimizer: {cfg.optimizer}")
 
 
+_DET_KW = ("skip", "use_curr_skip", "train")
+
+
 def _model_step(cfg: Config, model, carry, x_j, m_in, r_in, hm_in, a_j,
                 generator=None, sample_mean=False, **kw):
-    """Dispatch one prediction step to the configured model family; the
-    port has svg. `kw` passes the posterior inputs, skips, `train`,
-    `force_use_prior` and `noise` on. Returns (out, new_carry)."""
+    """Dispatch one prediction step to the configured model family, svg or
+    det. `kw` passes the posterior inputs, skips, `train`,
+    `force_use_prior` and `noise` on; det takes the skips and `train`
+    alone, and its `out` carries None for the posterior's and prior's
+    statistics (JAX `step.py:81-88`). Returns (out, new_carry)."""
+    if cfg.model == "det":
+        out, carry = model(carry, image=x_j, mask=m_in, robot=r_in,
+                           action=a_j, **{k: kw[k] for k in _DET_KW if k in kw})
+        return dict(out, mu=None, logvar=None, mu_p=None, logvar_p=None), carry
     if cfg.model != "svg":
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
     return model(carry, image=x_j, mask=m_in, robot=r_in, heatmap=hm_in,
@@ -142,23 +153,34 @@ def draw_noise(cfg: Config, batch: int, steps: int, generator=None,
                device=None, sched_prob: float = 1.0) -> dict:
     """A window's random draws, made before it runs: per step the
     scheduled-sampling Bernoulli (ground truth with probability
-    `sched_prob`, one draw for the whole batch) and the prior's and the
-    posterior's N(0, 1) draws, float32 (steps, B, fh, fw, z_dim)."""
-    shape = (steps, batch, cfg.feat_height, cfg.feat_width, cfg.z_dim)
+    `sched_prob`, one draw for the whole batch) and, for a stochastic
+    model, the prior's and the posterior's N(0, 1) draws, float32
+    (steps, B, fh, fw, z_dim); None for det, which draws nothing."""
     use_truth = torch.rand(steps, generator=generator, device=device) < sched_prob
+    if not is_stochastic(cfg):
+        return {"use_truth": use_truth, "eps_prior": None, "eps_post": None}
+    shape = (steps, batch, cfg.feat_height, cfg.feat_width, cfg.z_dim)
     eps = torch.randn((2,) + shape, generator=generator, device=device)
     return {"use_truth": use_truth, "eps_prior": eps[0], "eps_post": eps[1]}
 
 
+def _step_noise(noise: dict, i: int):
+    """(eps_prior, eps_post) of step i (1 <= i < window), or None."""
+    if noise["eps_prior"] is None:
+        return None
+    return noise["eps_prior"][i - 1], noise["eps_post"][i - 1]
+
+
 def _window_inputs(batch: dict, i: int, masks=None):
-    """Step i's inputs (1 <= i < window): frame, mask and state j = i - 1
-    and i, and action j."""
-    if "heatmaps" in batch:
-        raise NotImplementedError("heatmap conditioning is not ported yet")
+    """Step i's inputs (1 <= i < window): frame, mask, state and heatmap
+    (where the batch has them) j = i - 1 and i, and action j."""
     x, states = batch["images"], batch["states"]
     masks = batch["masks"] if masks is None else masks
+    hm = batch.get("heatmaps")
     return dict(x_j=x[i - 1], x_i=x[i], m_j=masks[i - 1], m_i=masks[i],
-                r_j=states[i - 1], r_i=states[i], a_j=batch["actions"][i - 1])
+                r_j=states[i - 1], r_i=states[i], a_j=batch["actions"][i - 1],
+                hm_j=None if hm is None else hm[i - 1],
+                hm_i=None if hm is None else hm[i])
 
 
 def _predict(cfg, model, i, carry, skip, x_j, inp, noise, train,
@@ -171,13 +193,14 @@ def _predict(cfg, model, i, carry, skip, x_j, inp, noise, train,
         x_j_black = L.zero_robot_region(inp["m_j"], x_j)
         x_i_black = L.zero_robot_region(inp["m_i"], inp["x_i"])
     m_in, r_in, hm_in = _conditioning(cfg, inp["m_j"], inp["m_i"], inp["r_j"],
-                                      inp["r_i"], None, None)
+                                      inp["r_i"], inp["hm_j"], inp["hm_i"])
     out, new_carry = _model_step(
         cfg, model, carry, x_j_black, m_in, r_in, hm_in, inp["a_j"],
         sample_mean=sample_mean, skip=skip,
         use_curr_skip=(i <= 1) if not cfg.last_frame_skip else None,
         train=train, force_use_prior=force_use_prior, noise=noise,
-        **_next_conditioning(cfg, x_i_black, inp["m_i"], inp["r_i"], None))
+        **_next_conditioning(cfg, x_i_black, inp["m_i"], inp["r_i"],
+                             inp["hm_i"]))
     x_pred = composite(cfg, out["x_pred"], x_j).float()
     # freeze the skip after the conditioning frames (trainer.py:409-410)
     new_skip = out["curr_skip"] if i <= cfg.n_past else skip
@@ -194,8 +217,8 @@ def _save_convolutions(ctx, op, *args, **kwargs):
 
 
 def make_train_step(cfg: Config, model):
-    """Builds the whole-window train step of `model` (a training SVG:
-    float32 parameters) and its optimizer.
+    """Builds the whole-window train step of `model` (a training svg or det
+    model: float32 parameters) and its optimizer.
 
     train_step(batch, sched_prob, generator=None, noise=None) -> metrics,
     a dict of 0-d float32 tensors on the batch's device (not synced).
@@ -205,12 +228,14 @@ def make_train_step(cfg: Config, model):
       masks    (W, B, H, W', 1)
       states   (W, B, robot_dim)
       actions  (W-1, B, action_dim)
+      heatmaps (W, B, H, W', 1) iff model_use_heatmap
       batch_weight (B,) optional movement weighting (trainer.py:426-429)
     noise: `draw_noise`'s dict for the window, else drawn from `generator`.
     """
     optimizer = make_optimizer(cfg, model.parameters())
     dtype = compute_dtype(cfg)
     window = cfg.n_past + cfg.n_future
+    stochastic = is_stochastic(cfg)
 
     def step_fn(i, carry, skip, x_prev, inp, use_truth, eps, batch_weight):
         x_j = inp["x_j"]
@@ -223,9 +248,11 @@ def make_train_step(cfg: Config, model):
             "recon_loss": _recon_loss(cfg, x_pred, x_i, m_i, batch_weight),
             "robot_loss": L.robot_mse_criterion(x_pred, x_i, m_i),
             "world_loss": L.world_mse_criterion(x_pred, x_i, m_i),
-            "kld": L.kl_criterion(out["mu"], out["logvar"], out["mu_p"],
-                                  out["logvar_p"], x_i.shape[0]),
         }
+        if stochastic:
+            losses["kld"] = L.kl_criterion(out["mu"], out["logvar"],
+                                           out["mu_p"], out["logvar_p"],
+                                           x_i.shape[0])
         return carry, skip, x_pred, losses, out["bn_stats"]
 
     if cfg.remat and cfg.remat_policy == "conv":
@@ -252,13 +279,14 @@ def make_train_step(cfg: Config, model):
         for i in range(1, window):
             carry, skip, x_prev, losses, bn_stats = run(
                 i, carry, skip, x_prev, _window_inputs(batch, i),
-                noise["use_truth"][i - 1],
-                (noise["eps_prior"][i - 1], noise["eps_post"][i - 1]),
+                noise["use_truth"][i - 1], _step_noise(noise, i),
                 batch.get("batch_weight"))
             steps.append(losses)
             stats += bn_stats
         totals = {k: torch.stack([s[k] for s in steps]).sum() for k in steps[0]}
-        loss = totals["recon_loss"] + cfg.beta * totals["kld"]
+        loss = totals["recon_loss"]
+        if stochastic:
+            loss = loss + cfg.beta * totals["kld"]
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
@@ -281,6 +309,7 @@ def make_eval_step(cfg: Config, model, autoregressive: bool = True):
     (n_eval-1,), predictions (n_eval-1, B, H, W, 3)), on the batch's
     device."""
     dtype = compute_dtype(cfg)
+    stochastic = is_stochastic(cfg)
 
     @torch.no_grad()
     def eval_step(batch, generator=None, noise=None):
@@ -297,28 +326,60 @@ def make_eval_step(cfg: Config, model, autoregressive: bool = True):
             inp = _window_inputs(batch, i, masks)
             x_j = x_prev if autoregressive and i > 1 else inp["x_j"]
             out, x_pred, carry, skip = _predict(
-                cfg, model, i, carry, skip, x_j, inp,
-                (noise["eps_prior"][i - 1], noise["eps_post"][i - 1]),
+                cfg, model, i, carry, skip, x_j, inp, _step_noise(noise, i),
                 train=False, force_use_prior=True,
                 sample_mean=cfg.sample_mean)
-            # metrics against the true masks (trainer.py:677-697)
-            x_i, tm_i = inp["x_i"], true_masks[i]
-            x_pred_black = L.zero_robot_region(tm_i, x_pred)
-            x_i_black = L.zero_robot_region(tm_i, x_i)
-            per_step.append({
-                "recon_loss": _recon_loss(cfg, x_pred, x_i, tm_i),
-                "robot_loss": L.robot_mse_criterion(x_pred, x_i, tm_i),
-                "world_loss": L.world_mse_criterion(x_pred, x_i, tm_i),
-                "psnr": M.psnr(x_i_black.clamp(0, 1),
-                               x_pred_black.clamp(0, 1)).mean(),
-                "ssim": M.ssim(x_i_black, x_pred_black).mean(),
-                "kld": L.kl_criterion(out["mu"], out["logvar"], out["mu_p"],
-                                      out["logvar_p"], B),
-            })
+            metrics = _eval_metrics(cfg, x_pred, inp["x_i"], true_masks[i])
+            if stochastic:
+                metrics["kld"] = L.kl_criterion(out["mu"], out["logvar"],
+                                                out["mu_p"], out["logvar_p"], B)
+            per_step.append(metrics)
             preds.append(x_pred)
             x_prev = x_pred
-        stacked = {k: torch.stack([s[k] for s in per_step])
-                   for k in per_step[0]}
-        return stacked, torch.stack(preds)
+        return _stack(per_step), torch.stack(preds)
+
+    return eval_step
+
+
+def _eval_metrics(cfg: Config, x_pred, x_i, tm_i) -> dict:
+    """An eval step's metrics against the true masks (trainer.py:677-697)."""
+    x_pred_black = L.zero_robot_region(tm_i, x_pred)
+    x_i_black = L.zero_robot_region(tm_i, x_i)
+    return {
+        "recon_loss": _recon_loss(cfg, x_pred, x_i, tm_i),
+        "robot_loss": L.robot_mse_criterion(x_pred, x_i, tm_i),
+        "world_loss": L.world_mse_criterion(x_pred, x_i, tm_i),
+        "psnr": M.psnr(x_i_black.clamp(0, 1), x_pred_black.clamp(0, 1)).mean(),
+        "ssim": M.ssim(x_i_black, x_pred_black).mean(),
+    }
+
+
+def _stack(per_step: list) -> dict:
+    return {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
+
+
+def make_copy_eval_step(cfg: Config, autoregressive: bool = True):
+    """The eval window of the parameter-free copy baseline
+    (models/copy_model.py), with the per-step metric keys of
+    `make_eval_step` (JAX `step.py:302-344`; reference: trainer.py:606-607
+    routes "copy" through the shared eval metrics). The autoregressive pass
+    copies through the previous prediction, the one-step pass through the
+    previous true frame.
+
+    eval_step(batch, generator=None, noise=None) -> (per-step metrics, each
+    (n-1,), predictions (n-1, B, H, W, 3)) over the batch's n frames; the
+    generator and noise are ignored."""
+
+    @torch.no_grad()
+    def eval_step(batch, generator=None, noise=None):
+        x, tm = batch["images"].float(), batch["masks"].float()
+        x_prev = x[0]
+        per_step, preds = [], []
+        for i in range(1, x.shape[0]):
+            x_pred = copy_model.step(x_prev, x[i], tm[i])
+            per_step.append(_eval_metrics(cfg, x_pred, x[i], tm[i]))
+            preds.append(x_pred)
+            x_prev = x_pred if autoregressive else x[i]
+        return _stack(per_step), torch.stack(preds)
 
     return eval_step

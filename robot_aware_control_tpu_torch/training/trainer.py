@@ -5,7 +5,7 @@ src/prediction/trainer.py:53-1471).
     python -m robot_aware_control_tpu_torch.training.trainer \\
         --experiment synthetic --device cuda [--flags of config.py]
 
-The loop of the JAX trainer, for svg on the synthetic experiment:
+The loop of the JAX trainer, for svg and det on the synthetic experiment:
   * niter epochs x epoch_size batches (trainer.py:753-768), each batch a
     video of video_length frames sliced into floor(T / window) train
     windows, at random offsets with random_snippet (trainer.py:259-283);
@@ -18,12 +18,18 @@ The loop of the JAX trainer, for svg on the synthetic experiment:
     newest one (trainer.py:770-772, 829-897);
   * an eval epoch every eval_interval epochs: 1-step and autoregressive
     passes over n_eval windows (trainer.py:491-563), whose cells run the
-    hand kernel.
+    hand kernel;
+  * --dynamics_model_ckpt loaded before auto-resume (trainer.py:502-505);
+  * --model copy: the parameter-free copy baseline's metrics over full
+    train and test epochs instead of training (trainer.py:569-598).
 
 Not ported yet, and raising where they are read: the HDF5/RoboNet loaders
 (experiments other than synthetic), the finetune_* experiments and their
-robot models, models other than svg, sharded checkpoints. Not ported:
-mesh sharding, transfer loaders, eval gifs, wandb and the copy baseline.
+robot models, the models other than svg, det and copy, sharded
+checkpoints. The synthetic data carries no heatmaps, so heatmap-conditioned
+models raise on it, as the JAX trainer fails. Not ported: mesh sharding,
+transfer loaders, eval gifs and plots (the copy baseline's included),
+wandb.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from __future__ import annotations
 import argparse
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,7 +48,11 @@ from robot_aware_control_tpu_torch.data.synthetic import SyntheticDataset
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.training import checkpoint as ckpt
 from robot_aware_control_tpu_torch.training.logger import RunLogger, make_log_folder
-from robot_aware_control_tpu_torch.training.step import make_eval_step, make_train_step
+from robot_aware_control_tpu_torch.training.step import (
+    make_copy_eval_step,
+    make_eval_step,
+    make_train_step,
+)
 from robot_aware_control_tpu_torch.utils.device import resolve_device
 
 _WINDOW_KEYS = ("images", "masks", "states")
@@ -50,7 +60,7 @@ _WINDOW_KEYS = ("images", "masks", "states")
 
 class PredictionTrainer:
     def __init__(self, cfg: Config, device="cuda"):
-        get_model(cfg)  # raises for a model the port does not have
+        family = get_model(cfg)  # raises for a model the port does not have
         if "finetune" in cfg.experiment:
             raise NotImplementedError(
                 f"experiment {cfg.experiment!r}: the finetune experiments "
@@ -60,14 +70,19 @@ class PredictionTrainer:
                 "sharded_checkpoint: orbax checkpoints are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = get_model(cfg).init(cfg, cfg.seed, self.device,
-                                         train=True)
         self.log_dir = make_log_folder(cfg)
         self.logger = RunLogger(cfg, self.log_dir)
         self._step = 0
         self._start_epoch = 0
         self._video_rng = np.random.RandomState(cfg.seed)
         self._generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        if cfg.model == "copy":
+            # no parameters: eval steps with the learned models' metric keys
+            self.model = self.optimizer = self.train_step = None
+            self.eval_step_ar = make_copy_eval_step(cfg, autoregressive=True)
+            self.eval_step_1 = make_copy_eval_step(cfg, autoregressive=False)
+            return
+        self.model = family.init(cfg, cfg.seed, self.device, train=True)
         self.train_step, self.optimizer = make_train_step(cfg, self.model)
         self.eval_step_ar = make_eval_step(cfg, self.model, autoregressive=True)
         self.eval_step_1 = make_eval_step(cfg, self.model, autoregressive=False)
@@ -78,6 +93,13 @@ class PredictionTrainer:
         synthetic experiment."""
         cfg = self.cfg
         if cfg.experiment == "synthetic" or cfg.dataset == "synthetic":
+            if cfg.model_use_heatmap:
+                # the JAX step fails on such batches (svg.py:341-348 would
+                # concatenate a missing heatmap)
+                raise ValueError(
+                    "model_use_heatmap: the synthetic data carries no "
+                    "heatmaps; train heatmap models on an experiment whose "
+                    "loader makes them")
             train = SyntheticDataset(cfg, cfg.batch_size, seed=cfg.seed,
                                      num_batches=max(cfg.epoch_size, 1))
             test = SyntheticDataset(cfg, cfg.test_batch_size,
@@ -151,10 +173,9 @@ class PredictionTrainer:
                 agg[k] = agg.get(k, 0.0) + v.mean() / num
         return {k: float(v) for k, v in agg.items()}
 
-    def _eval_epoch(self, test_iter):
-        """Epoch metrics over the eval iterator, capped at cfg.eval_batches
-        batches (0 = the full set, as the reference, trainer.py:467-489)."""
-        cap = self.cfg.eval_batches
+    def _eval_epoch(self, test_iter, cap: Optional[int]):
+        """Epoch metrics over the eval iterator, capped at `cap` batches
+        (None: the full set)."""
         agg = defaultdict(float)
         n = 0
         for batch in test_iter:
@@ -162,7 +183,7 @@ class PredictionTrainer:
                 for k, v in self._eval_video(batch, autoregressive=mode).items():
                     agg[f"{tag}{k}"] += v
             n += 1
-            if cap and n >= cap:
+            if cap is not None and n >= cap:
                 break
         return {k: v / max(n, 1) for k, v in agg.items()}, n
 
@@ -179,25 +200,41 @@ class PredictionTrainer:
                                     background=self.cfg.async_checkpoint)
         self.logger.info(f"saved checkpoint {path} (epoch {epoch})")
 
+    def load_checkpoint(self, path: str, finetune: bool = False):
+        """Loads a ckpt_<step>.npz of either package: the parameters, the
+        BatchNorm statistics and, unless `finetune`, the optimizer's state
+        and the step (trainer.py:484-494)."""
+        templates = self._trees()
+        if finetune:
+            del templates["opt"]
+        trees, step = ckpt.load_checkpoint(path, templates)
+        self.model.load_state_dict(
+            convert.state_dict_from_flat(trees["params"], trees["bn"]),
+            strict=True)
+        if not finetune:
+            convert.optimizer_from_jax(self.cfg, self.model, self.optimizer,
+                                       trees["opt"])
+            self._step = step
+
     def _resume(self):
         path = ckpt.latest_checkpoint(self.log_dir)
         if path is None:
             return
-        trees, step = ckpt.load_checkpoint(path, self._trees())
-        self.model.load_state_dict(
-            convert.state_dict_from_flat(trees["params"], trees["bn"]),
-            strict=True)
-        convert.optimizer_from_jax(self.cfg, self.model, self.optimizer,
-                                   trees["opt"])
-        self._step = step
+        self.load_checkpoint(path)
         spv = max(self.cfg.video_length // (self.cfg.n_past + self.cfg.n_future), 1)
-        self._start_epoch = step // max(self.cfg.epoch_size * spv, 1)
-        self.logger.info(f"auto-resumed from {path} at step {step}")
+        self._start_epoch = self._step // max(self.cfg.epoch_size * spv, 1)
+        self.logger.info(f"auto-resumed from {path} at step {self._step}")
 
     # ------------------------------------------------------------------
     def train(self):
         cfg = self.cfg
+        if cfg.model == "copy":
+            return self.copy_baseline()
         train_loader, test_loader = self._setup_data()
+        if cfg.dynamics_model_ckpt:
+            self.load_checkpoint(cfg.dynamics_model_ckpt)
+            self.logger.info(f"loaded {cfg.dynamics_model_ckpt} at step "
+                             f"{self._step}")
         self._resume()
         train_iter = train_loader.infinite()
         window = cfg.n_past + cfg.n_future
@@ -222,13 +259,36 @@ class PredictionTrainer:
             if (epoch + 1) % cfg.checkpoint_interval == 0:
                 self._save(epoch)
             if (epoch + 1) % cfg.eval_interval == 0:
-                ev, _ = self._eval_epoch(iter(test_loader))
+                # cfg.eval_batches 0 is the full set, as the reference
+                # (trainer.py:467-489)
+                ev, _ = self._eval_epoch(iter(test_loader),
+                                         cfg.eval_batches or None)
                 self.logger.scalars(ev, self._step, prefix="eval/")
                 self.logger.info(
                     "eval " + " ".join(f"{k}={v:.4f}" for k, v in ev.items()))
         self._save(cfg.niter - 1)
         ckpt.wait_for_checkpoints()  # join background npz writers
         return self.model
+
+    def copy_baseline(self):
+        """The copy baseline's world-error floor (trainer.py:569-598): the
+        1step_/autoreg_ metrics of the learned models' eval over full train
+        and test epochs, each split's logged at step 0 and at 500000 so that
+        dashboards draw a horizontal line. Returns {split: metrics}. The
+        JAX trainer also writes a rollout gif of each split; the port has
+        no plots yet."""
+        train_loader, test_loader = self._setup_data()
+        results = {}
+        for name, loader in (("train", train_loader), ("test", test_loader)):
+            metrics, n = self._eval_epoch(iter(loader), None)
+            self.logger.scalars(metrics, 0, prefix=f"{name}/")
+            self.logger.scalars(metrics, 500000, prefix=f"{name}/")
+            self.logger.info(
+                f"copy baseline [{name}] ({n} batches; no rollout gif: the "
+                "port has no eval plots yet) "
+                + " ".join(f"{k}={v:.5f}" for k, v in sorted(metrics.items())))
+            results[name] = metrics
+        return results
 
 
 def main(argv=None):

@@ -13,6 +13,7 @@ import torch
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.control.plan_server import PlanServer
 from robot_aware_control_tpu_torch.models import svg
+from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.training.step import make_eval_step
@@ -31,6 +32,13 @@ from torch_train_small import (
     bench_batch,
     eval_kernel_vs_plain,
     train_step_parity,
+)
+from torch_variant_cases import (
+    CANONICAL,
+    TRAIN_VARIANTS,
+    VARIANTS,
+    small_cost_parity,
+    small_plan_parity,
 )
 
 pytestmark = pytest.mark.gpu
@@ -304,3 +312,63 @@ def test_gpu_served_plans_equal_local(cuda):
     finally:
         server.close()
         thread.join(timeout=10)
+
+
+# ---------------------------------------------------------------- variants
+@pytest.mark.parametrize("B", [100, 200, 400])
+@pytest.mark.parametrize("k", [5, 3])
+def test_gpu_wmma_cell_matches_plain_at_det_channels(cuda, k, B):
+    """det's plan cells (6x8, Cx = C = 260: channel counts that are not
+    multiples of 8 or 16; B = 100 a request, 200 and 400 for 2 and 4
+    planned together) take the WMMA kernel, one launch and none through
+    sm90, and equal its plain version to one bf16 rounding step."""
+    args = _cell_args(cuda, torch.bfloat16, B, 6, 8, 260, 260, k, seed=k)
+    before = dict(kernels.launches)
+    got = kernels.conv_lstm_cell(*args)
+    assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
+    assert kernels.launches["conv_lstm_cell_sm90"] == before["conv_lstm_cell_sm90"]
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*args),
+                       torch.bfloat16, 1e-2)
+
+
+def _tf32_off(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("name", ["heatmap", "group_norm", "det"])
+def test_gpu_variant_plan_matches_cpu(cuda, monkeypatch, name):
+    """A small float32 plan of the variant equals the CPU's to 1e-4 and
+    launches its cells (none for GroupNorm) and masks
+    (torch_variant_cases.small_plan_parity)."""
+    _tf32_off(monkeypatch)
+    small_plan_parity(name, cuda)
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_gpu_variant_costs_match_cpu(cuda, monkeypatch, name):
+    """Small float32 rollout costs of fixed candidates equal the CPU's to
+    1e-4, the blur cost's within one 1/255 step a pixel on another step."""
+    _tf32_off(monkeypatch)
+    small_cost_parity(name, cuda)
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_VARIANTS))
+def test_gpu_variant_train_step_matches_cpu(cuda, monkeypatch, name):
+    """The small float32 train and eval step of GroupNorm + heatmaps and of
+    det, GPU against CPU, to the limits of torch_train_small.py."""
+    _tf32_off(monkeypatch)
+    errs, _ = train_step_parity(cuda, **TRAIN_VARIANTS[name])
+    assert errs["grads_norm"] <= GRAD_TOL_DEVICES
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_gpu_variant_batched_plans_equal_single(cuda, name):
+    """Each variant at the canonical config (bf16; det's cells through the
+    WMMA kernel at B = R x 100, GroupNorms over R x 100 rows, heatmaps
+    rendered for them, blur costs per request): batched plans of 2 and 4
+    requests equal their single plans bit for bit."""
+    cfg = Config(**dict(CANONICAL, **VARIANTS[name]))
+    model = get_model(cfg).init(cfg, 0, cuda)
+    checks = plan_checks(CEMPolicy(cfg, model), repeats=2, batch_sizes=(2, 4))
+    assert set(checks["batched"].values()) == {0.0}

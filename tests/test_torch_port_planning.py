@@ -106,9 +106,22 @@ def test_cost_matches_jax(case, rng):
                                atol=1e-6)
 
 
-def test_inpaint_blur_cost_not_ported():
-    with pytest.raises(NotImplementedError):
-        tcost.RobotWorldCost(Config(reward_type="inpaint-blur"))
+def test_inpaint_blur_cost_dispatches():
+    """RobotWorldCost dispatches reward_type inpaint-blur to
+    InpaintBlurCost, the blurred branch by default and the unblurred one
+    (-unblur_cost_scale x MSE) when asked, as the JAX RobotWorldCost."""
+    rng = np.random.RandomState(3)
+    cfg = Config(reward_type="inpaint-blur", img_dim=8, world_cost_weight=2.0)
+    c = torch.tensor(rng.rand(3, 8, 8, 3).astype(np.float32))
+    g = torch.tensor(rng.rand(8, 8, 3).astype(np.float32))
+    cost = tcost.RobotWorldCost(cfg)
+    blur = tcost.InpaintBlurCost(cfg)
+    torch.testing.assert_close(cost(c, g), 2.0 * blur(c, g), rtol=0, atol=0)
+    want = jcost.RobotWorldCost(JConfig(reward_type="inpaint-blur", img_dim=8,
+                                        world_cost_weight=2.0))(
+        jnp.asarray(c.numpy()), jnp.asarray(g.numpy()), blur=False)
+    np.testing.assert_allclose(cost(c, g, blur=False).numpy(), np.asarray(want),
+                               rtol=1e-6)
 
 
 def test_prepare_goals_matches_jax(models, rng):

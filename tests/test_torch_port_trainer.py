@@ -201,14 +201,19 @@ def test_argparser_takes_the_jax_flags():
         main(["--device", "cpu", "--no_such_flag", "1"])
 
 
-@pytest.mark.parametrize("kw", [dict(lstm_group_norm=True),
-                                dict(model_use_heatmap=True),
+@pytest.mark.parametrize("kw", [dict(model="cdna_det"),
+                                dict(model="svg_vec"),
                                 dict(experiment="finetune_locobot"),
-                                dict(model="det"),
+                                dict(experiment="train_robonet"),
                                 dict(sharded_checkpoint=True)])
 def test_unported_options_raise(tmp_path, kw):
+    """Options the port does not have yet raise when the trainer is built;
+    an experiment whose data loader is not ported, when it trains."""
     with pytest.raises(NotImplementedError):
-        PredictionTrainer(Config(**_trainer_cfg(tmp_path, **kw)), device="cpu")
+        tr = PredictionTrainer(Config(**_trainer_cfg(tmp_path, **kw)),
+                               device="cpu")
+        if kw.get("experiment") == "train_robonet":
+            tr.train()
 
 
 # --------------------------------------------------------------- trainer

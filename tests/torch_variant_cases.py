@@ -1,0 +1,184 @@
+"""The model variants a JAX checkpoint can carry, as checks that run on the
+card as well as on the CPU (not a test module; imports no JAX), shared by
+chip_smoke.py and tests/test_torch_port_gpu.py:
+
+  * `VARIANTS`: heatmap conditioning (current and future), the inpaint-blur
+    cost, GroupNorm ConvLSTM cells and the det model, each as the config
+    fields it sets on top of a planning config; `TRAIN_VARIANTS` the two
+    trained variants (GroupNorm with heatmaps, det);
+  * `plan_launches`: the kernel launches one CEM plan of a variant makes;
+  * `small_plan_parity`: a small float32 plan of a variant on the GPU
+    against the same plan on the CPU, with injected action noise;
+  * `small_cost_parity`: the rollout costs of fixed candidates, GPU against
+    CPU; for the blur cost within `blur_flip_allowance`.
+
+The inpaint-blur cost floors 255 x the blur to whole steps, so two runs
+whose images differ in the last float32 bits may put a pixel on either side
+of a step; and with random weights the model's prediction hardly depends on
+the candidate, so the candidates' blur costs differ by 3e-8 to 4e-7 (of
+0.265, the small config on the CPU): less than float32 noise moves them, so
+their order, and a plan, is not a function of the weights alone. The blur
+variant is therefore held at its costs, each within one 1/255 step of every
+pixel that lands on another step; the other variants at their plans too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.models.registry import get_model
+from robot_aware_control_tpu_torch.ops import kernels
+from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
+from robot_aware_control_tpu_torch.planning.cost import InpaintBlurCost, gaussian_blur
+from robot_aware_control_tpu_torch.planning.rollout import RolloutEngine, request_inputs
+from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
+
+VARIANTS = {
+    "heatmap": dict(model_use_heatmap=True, model_use_future_heatmap=True),
+    # the defaults: img_dim 128 (a 255-tap blur), blur_sigma 10,
+    # unblur_timestep 1 (the last rollout step scores unblurred)
+    "blur": dict(reward_type="inpaint-blur"),
+    "group_norm": dict(lstm_group_norm=True),
+    "det": dict(model="det"),
+}
+
+# the training variants: GroupNorm cells with current and future heatmaps,
+# and det
+TRAIN_VARIANTS = {
+    "gn_heatmap": dict(lstm_group_norm=True, model_use_heatmap=True,
+                       model_use_future_heatmap=True),
+    "det": dict(model="det"),
+}
+
+# the canonical planning config of bench.py:266-287
+CANONICAL = dict(
+    model="svg", g_dim=256, z_dim=64, image_height=48, image_width=64,
+    action_dim=5, robot_dim=5, model_use_mask=True, model_use_future_mask=True,
+    model_use_robot_state=True, reconstruction_loss="dontcare_l1",
+    reward_type="dontcare", compute_dtype="bfloat16", horizon=5, opt_iter=10,
+    action_candidates=100, topk=5, cem_init_std=0.015,
+)
+# cut to g_dim 16, z_dim 4, float32, N 6, horizon 3, opt_iter 2
+SMALL = dict(CANONICAL, g_dim=16, z_dim=4, compute_dtype="float32",
+             horizon=3, opt_iter=2, action_candidates=6, topk=2,
+             sample_mean=True)
+PLAN_TOL = 1e-4
+COST_RTOL = 1e-4
+# the most one pixel's move by one 1/255 step changes (blurred image -
+# blurred goal)^2, both in [0, 1]
+FLIP_STEP = 2 / 255 + 1 / 255 ** 2
+
+
+def plan_launches(cfg: Config) -> dict:
+    """Kernel launches of one plan: per model step 2 cells in each of the
+    prior and frame stacks (svg) or in the frame stack (det), none with
+    GroupNorm cells; bf16 cells of svg's 256 channels through the wgmma/TMA
+    kernel, det's 260 through the WMMA one; one mask render an iteration."""
+    steps = (cfg.horizon - 1) * cfg.opt_iter
+    cells = 0 if cfg.lstm_group_norm else (2 if cfg.model == "det" else 4) * steps
+    sm90 = cells if (cfg.model == "svg" and cfg.compute_dtype == "bfloat16"
+                     and cfg.g_dim % 8 == 0) else 0
+    return {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": sm90,
+            "capsule_mask_render": cfg.opt_iter}
+
+
+def start_goal(rng, h=48, w=64):
+    start = State(img=rng.rand(h, w, 3).astype(np.float32),
+                  state=np.array([0.3, 0.0, 0.15, 0.0, 0.0], np.float32),
+                  qpos=np.zeros(5, np.float32))
+    goal = DemoGoalState(
+        imgs=[rng.rand(h, w, 3).astype(np.float32) for _ in range(4)],
+        masks=[np.zeros((h, w), np.float32) for _ in range(4)])
+    return start, goal
+
+
+def small_plan_parity(name: str, dev="cuda"):
+    """The variant's small float32 plan on `dev` against the CPU's, same
+    weights (seed 3) and injected action noise; not for the blur variant
+    (module docstring). Call with TF32 off.
+    Returns (max |difference|, the kernel launches of the `dev` plan);
+    raises AssertionError past PLAN_TOL or where the launches are not
+    `plan_launches`'."""
+    cfg = Config(**dict(SMALL, **VARIANTS[name]))
+    start, goal = start_goal(np.random.RandomState(1))
+    noise = np.random.RandomState(2).randn(
+        cfg.opt_iter, cfg.action_candidates, cfg.horizon - 1, 2)
+    plans = {}
+    for d in ("cpu", dev):
+        model = get_model(cfg).init(cfg, seed=3, device=d)
+        before = dict(kernels.launches)
+        plans[str(d)] = CEMPolicy(cfg, model, device=d).get_action(
+            start, goal, noise=noise)
+        launched = {k: kernels.launches[k] - before[k] for k in before}
+    err = float(np.abs(plans[str(dev)] - plans["cpu"]).max())
+    if not err <= PLAN_TOL or launched != plan_launches(cfg):
+        raise AssertionError(
+            f"{name}: small plan on {dev} differs from the CPU's by {err} "
+            f"(tolerance {PLAN_TOL}) or launched {launched}, expected "
+            f"{plan_launches(cfg)}")
+    return err, launched
+
+
+def blur_floor(cfg: Config, img):
+    """floor(255 x blur) / 255 of images (..., H, W, C), as InpaintBlurCost
+    takes it, on the CPU."""
+    cost = InpaintBlurCost(cfg)
+    x = torch.tensor(np.array(img, np.float32))
+    lead = x.shape[:-3]
+    x = x.reshape((-1,) + x.shape[-3:])
+    out = torch.floor(255.0 * gaussian_blur(x, cost.sigma, cost.radius)) / 255.0
+    return out.reshape(lead + out.shape[1:])
+
+
+def blur_flip_allowance(cfg: Config, obs_a, obs_b, goal_flips=None):
+    """The most two runs of one inpaint-blur rollout can differ in each
+    candidate's summed cost through pixels on different 1/255 steps: obs
+    (T, N, H, W, C) of both runs; goal_flips (T,) the goal's pixels on
+    different steps in the two runs, if they blurred it apart. Returns
+    ((N,) allowance, pixels on different steps over all blurred steps)."""
+    T, N = obs_a.shape[:2]
+    numel = int(np.prod(obs_a.shape[2:]))
+    flips = torch.zeros(N, dtype=torch.float64)
+    for t in range(T):
+        if not t < T - cfg.unblur_timestep:  # an unblurred step
+            continue
+        diff = blur_floor(cfg, obs_a[t]) != blur_floor(cfg, obs_b[t])
+        flips += diff.reshape(N, -1).sum(1).double()
+        if goal_flips is not None:
+            flips += float(goal_flips[t])
+    return (flips * FLIP_STEP / numel).numpy(), int(flips.sum())
+
+
+def small_cost_parity(name: str, dev="cuda"):
+    """The variant's small float32 rollout on `dev` against the CPU's for
+    fixed candidates (weights from seed 3, the prior's mean): the summed
+    costs to COST_RTOL relative, plus `blur_flip_allowance` for the blur
+    cost. Call with TF32 off. Returns (max |difference| / |cost|, pixels
+    on different blur steps); raises AssertionError past the bound."""
+    cfg = Config(**dict(SMALL, **VARIANTS[name]))
+    start, goal = start_goal(np.random.RandomState(1))
+    rng = np.random.RandomState(4)
+    acts = np.zeros((8, cfg.horizon - 1, cfg.action_dim), np.float32)
+    acts[..., :2] = rng.uniform(-0.05, 0.05, acts[..., :2].shape)
+    out = {}
+    for d in ("cpu", dev):
+        model = get_model(cfg).init(cfg, seed=3, device=d)
+        inputs = [None if a is None else torch.tensor(a, device=d)
+                  for a in request_inputs(cfg, start, goal, cfg.horizon - 1)]
+        cost, obs = RolloutEngine(cfg, device=d)(
+            model, *inputs[:3], torch.tensor(acts, device=d), *inputs[3:5],
+            torch.Generator(d).manual_seed(0), ret_obs=True)
+        out[str(d)] = cost.cpu().double().numpy(), obs.cpu()
+    (want, obs_cpu), (got, obs_dev) = out["cpu"], out[str(dev)]
+    allow, flips = np.zeros_like(want), 0
+    if cfg.reward_type == "inpaint-blur":
+        allow, flips = blur_flip_allowance(cfg, obs_dev, obs_cpu)
+    err = np.abs(got - want)
+    if not np.all(err <= COST_RTOL * np.abs(want) + allow):
+        raise AssertionError(
+            f"{name}: rollout costs on {dev} differ from the CPU's by {err} "
+            f"(bound {COST_RTOL} x |cost| + {allow}, {flips} pixels on "
+            "other blur steps)")
+    return float((err / np.abs(want)).max()), flips
