@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Ablations of the wgmma/TMA ConvLSTM-cell kernel on one NVIDIA GPU.
 
-    python3 cell_ablation.py
+    python3 cell_ablation.py [--det]
 
-Builds variants of robot_aware_control_tpu_torch/csrc/conv_lstm_cell_sm90.cu,
-each made by a textual substitution in the source, and times them at the
+Builds variants of robot_aware_control_tpu_torch/csrc/conv_lstm_cell_sm90.cu
+(with its header conv_lstm_cell_sm90_geom.h written into it), each made by a
+textual substitution in the source, and times them at the
 planner's two cell shapes (B=100, 6x8, Cx=C=256, k=5 and k=3), in turns
 (every variant once, then every variant again in reverse order), with the
 same CUDA-event timing as chip_smoke.py. Each variant takes one thing out:
@@ -17,6 +18,29 @@ same CUDA-event timing as chip_smoke.py. Each variant takes one thing out:
   precise_math  expf, an IEEE division and tanhf in the update in place of
                 the approximate exponential and reciprocal;
   bk32          32 channels a k-step over 8 stages in place of 64 over 4.
+
+With --det, the variants are timed at det's two cell shapes (B=100, 6x8,
+Cx=C=260 in det's layout: padded views; the kernel reads the weights'
+gate-packed copy, ops/kernels.py:sm90_weights), each taking
+out one part of the tail layout (csrc/conv_lstm_cell_sm90_geom.h):
+
+  kernel        the source as it is;
+  no_tail_n     no narrow tail: the 4 last hidden channels are not
+                multiplied or loaded (results are wrong);
+  no_short      the short k-step loads and multiplies nothing (results are
+                wrong);
+  no_fold       a tile's pieces are not added: each block finishes its own
+                piece (results are wrong);
+  whole_tiles   the general layout at 260 channels: whole 64-channel tiles
+                and k-steps for the tails, as a padding to 264 channels
+                would multiply;
+  producer_56   56 registers for the producer warpgroup (224 for the
+                consumers) in place of 40 (232): no spills;
+and, on the source as it is, two other layouts of the same inputs:
+  gates_on_8    each gate's weight columns on a multiple of 8 (264) in
+                place of 64 (320), so that boxes' rows straddle 128-byte
+                lines;
+  pixels_on_64  x, h and c at a pixel stride of 320 in place of 264.
 
 Prints per variant and shape the device time and its spread; for the
 variants that still compute the cell, that they agree with the plain version
@@ -41,11 +65,12 @@ import chip_smoke as smoke
 from robot_aware_control_tpu_torch.ops import kernels
 
 SRC = os.path.join(kernels._CSRC, "conv_lstm_cell_sm90.cu")
+HEADER = "conv_lstm_cell_sm90_geom.h"
 OUT = os.path.join(kernels.BUILD_DIR, "ablation")
 
 VARIANTS = {
     "kernel": [],
-    "no_loads": [(r"mbar_expect_tx\(fb, kStageBytes\);", "mbar_arrive(fb);"),
+    "no_loads": [(r"mbar_expect_tx\(fb,[^;]*;", "mbar_arrive(fb);"),
                  (r"tma_load_4d_both\(a \+", "if (0) tma_load_4d_both(a +"),
                  (r"tma_load_2d\(a \+ kABytes", "if (0) tma_load_2d(a + kABytes")],
     "no_products": [(r"wgmma_m64n256k16\(acc,[^;]*;", ";")],
@@ -56,16 +81,60 @@ VARIANTS = {
         (r"tanh_fast\(float v\) \{[^}]*\}", "tanh_fast(float v) { return tanhf(v); }")],
     "bk32": [(r"BK = 64;", "BK = 32;"), (r"kStages = 4;", "kStages = 8;")],
 }
-EXACT = {"kernel", "precise_math", "bk32"}  # variants that still compute the cell
+DET_VARIANTS = {
+    "kernel": [],
+    "no_tail_n": [(r"(__host__ __device__ bool carries\(int np, int rank, int wg\) const \{)",
+                   r"\1 return false;")],
+    "no_short": [(r"mbar_expect_tx\(fb, 2 \* kShortABytes[^;]*;", "mbar_arrive(fb);"),
+                 (r"tma_load_4d_both\(a \+ (rank \* \(kShortABytes|kShortABytes)",
+                  r"if (0) tma_load_4d_both(a + \1"),
+                 (r"tma_load_2d\(a \+ kABytes \+ (gate \* 2|kBBytes \+ part)",
+                  r"if (0) tma_load_2d(a + kABytes + \1"),
+                 (r"(wgmma_m64n256k16\(acc, da,\n\s*smem_desc\(b \+ kk \* kShortBBytes)",
+                  r"if (0) \1"),
+                 (r"(wgmma_m64n32k16\(acct, da, smem_desc\(b \+ kBBytes \+ kk \* kShortBtBytes)",
+                  r"if (0) \1")],
+    "no_fold": [(r"if \(pc\.n > 1\) \{\n        if \(ct == 0\) s_arrival",
+                 "if (0) {\n        if (ct == 0) s_arrival")],
+    "whole_tiles": [(r"(inline __host__ __device__ bool takes_tail\(int Cx, int C\) \{)",
+                     r"\1\n  return false;")],
+    "producer_56": [(r"setmaxnreg\.dec\.sync\.aligned\.u32 40;",
+                     "setmaxnreg.dec.sync.aligned.u32 56;"),
+                    (r"setmaxnreg\.inc\.sync\.aligned\.u32 232;",
+                     "setmaxnreg.inc.sync.aligned.u32 224;")],
+}
+EXACT = {"kernel", "precise_math", "bk32", "whole_tiles", "producer_56",
+         "gates_on_8", "pixels_on_64"}  # variants that still compute the cell
 
 
-def build_variants() -> dict:
+def other_det_layouts(x, h, c, w, b) -> dict:
+    """Launches of the source as it is on det's cell in the two other
+    layouts --det compares."""
+    B, H, W, Cx = x.shape
+    C, k = h.shape[-1], w.shape[0]
+    det = smoke.det_layout(x, h, c, w, b)
+    packed, cp = kernels.sm90_weights(w, C)
+    # each gate's columns on a multiple of 8 (264) in place of 64 (320),
+    # then the tail's block
+    w8 = torch.cat([packed[..., q * cp:q * cp + kernels.round_up(C)]
+                    for q in range(4)] + [packed[..., 4 * cp:]], -1)
+    wide = [torch.full((B, H, W, kernels.round_up(t.shape[-1], 64)),
+                       float("nan"), dtype=t.dtype, device=t.device)
+            [..., :t.shape[-1]].copy_(t) for t in (x, h, c)]
+    return {"gates_on_8": lambda: kernels.launch_sm90(
+                (B, H, W, Cx, C, k), *det[:3], w8, kernels.round_up(C), b),
+            "pixels_on_64": lambda: kernels.conv_lstm_cell(*wide, w, b)}
+
+
+def build_variants(variants) -> dict:
     """Writes and compiles every variant (nvcc in parallel); returns the
     loaded libraries with their argument types set."""
     os.makedirs(OUT, exist_ok=True)
-    src = open(SRC).read()
+    with open(os.path.join(kernels._CSRC, HEADER)) as f:
+        header = f.read().replace("#pragma once", "")
+    src = open(SRC).read().replace(f'#include "{HEADER}"', header)
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = src
         for pattern, repl in subs:
             text, n = re.subn(pattern, repl, text, flags=re.DOTALL)
@@ -84,13 +153,8 @@ def build_variants() -> dict:
         out, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(os.path.join(OUT, f"{name}.so"))
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv_lstm_cell_sm90.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
-        lib.conv_lstm_cell_sm90.restype = i
-        lib.conv_lstm_cell_sm90_schedule.argtypes = [i] * 6 + [ptr]
-        lib.conv_lstm_cell_sm90_schedule.restype = i
-        libs[name] = lib
+        libs[name] = kernels.bind("conv_lstm_cell_sm90",
+                                  ctypes.CDLL(os.path.join(OUT, f"{name}.so")))
     return libs
 
 
@@ -104,27 +168,37 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
     print(card)
-    libs = build_variants()
-    for shape in smoke.PLANNER_CELLS:
-        args = smoke.cell_inputs(*shape, torch.bfloat16, dev, 7)
-        want = kernels.conv_lstm_cell_plain(*args)
-        times = {name: [] for name in libs}
-        order = list(libs)
+    det = "--det" in sys.argv[1:]
+    libs = build_variants(DET_VARIANTS if det else VARIANTS)
+    for shape in smoke.DET_CELLS if det else smoke.PLANNER_CELLS:
+        raw = smoke.cell_inputs(*shape, torch.bfloat16, dev, 7)
+        want = kernels.conv_lstm_cell_plain(*raw)
+        args = smoke.det_layout(*raw) if det else raw
+        runs = {name: lambda: kernels.conv_lstm_cell(*args) for name in libs}
+        if det:
+            runs.update(other_det_layouts(*raw))
+        times = {name: [] for name in runs}
+        order = list(runs)
         for names in (order, order[::-1]):
             for name in names:
                 # the wrapper loads its library once; point it at the variant
-                kernels._libs["conv_lstm_cell_sm90"] = libs[name]
-                got = kernels.conv_lstm_cell(*args)
+                kernels._libs["conv_lstm_cell_sm90"] = libs.get(name, libs["kernel"])
+                kernels._sm90_schedule.cache_clear()
+                kernels.reset_launches()
+                got = runs[name]()
                 if name in EXACT and not all(
                         torch.allclose(g.float(), w.float(), rtol=1e-2, atol=1e-2)
                         for g, w in zip(got, want)):
                     raise AssertionError(f"{name} disagrees with the plain version")
-                times[name].append(
-                    smoke.cuda_ms(lambda: kernels.conv_lstm_cell(*args)))
+                if kernels.launches["conv_lstm_cell_sm90"] != 1:
+                    raise AssertionError(f"{name} did not take the sm90 kernel")
+                times[name].append(smoke.cuda_ms(runs[name]))
         steps = kernels.sm90_schedule(*shape, dev)["steps"]
+        if det:
+            print(f"det B={shape[0]} Cx=C={shape[3]}:")
         for name, ms in times.items():
             extra = ", agrees with plain" if name in EXACT else ""
-            if name == "no_products":
+            if name == "no_products" and not det:
                 per_s = steps / (np.mean(ms) * 1e-3) * 1024 / 1e12
                 extra = (f", operands into shared memory at {48 * per_s:.2f} "
                          f"TB/s, from L2 at {40 * per_s:.2f} TB/s")

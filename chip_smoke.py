@@ -20,7 +20,9 @@ Phases, each of which raises on failure:
                 trainer's eval shapes (B=16, the same otherwise) and those
                 of 2 and 4 requests planned together (B=200, 400): in bf16
                 the wgmma/TMA kernel both take and the WMMA kernel it
-                replaced, and the float32 kernel; then small odd shapes;
+                replaced, and the float32 kernel; then small odd shapes,
+                and a bf16 cell of 260 channels on a 262-channel pixel
+                stride (the WMMA kernel reads it in place);
   5. parity     a small float32 CEM plan on the GPU (kernels) equals the
                 same plan on the CPU (plain versions) for injected noise;
   6. plan       the canonical planner of bench.py (svg, g_dim 256, z_dim 64,
@@ -46,7 +48,8 @@ Phases, each of which raises on failure:
                 synthetic experiment: it trains, runs its eval epoch
                 through the wgmma/TMA cell kernel (launches counted),
                 writes a checkpoint, and a second trainer resumes from it;
-  9. kernels    per kernel: launches in phase 6, device time per launch
+  9. kernels    per kernel: launches in phase 6 (the cell at det's shapes:
+                in phase 11's det plans), device time per launch
                 (CUDA events) at the planner's shapes, its plain version's
                 time, the least time the card could take (bound), and a
                 PyTorch library call's time (for the cell also at the eval
@@ -60,12 +63,16 @@ Phases, each of which raises on failure:
                 replaced), the GFLOP it multiplies, and its schedule
                 (tiles, k-steps, blocks in clusters of two, waves, fill,
                 workspace); the cell is also timed at B = 16, 200 and 400;
+                the float32 CUDA-core kernel at the planner's shapes beside
+                cuDNN's float32 gate conv (TF32 off) and its bound at 67
+                TFLOP/s;
  10. serve      plan serving (control/plan_server.py) at the planning
                 config of phase 6: the cell kernel returns identical bits
                 over 50 launches of identical inputs at B = 16, 100, 200
                 and 400 (k = 5 and 3), and for rows of a B = 100 launch
                 placed at offsets 0 and 100 of B = 200 launches and 0, 100,
-                200 and 300 of B = 400 launches (the WMMA
+                200 and 300 of B = 400 launches, at 256 channels and at
+                det's 260 (padded views, NaN pad lanes; the WMMA
                 and float32 kernels too, at small shapes); one request
                 planned 3 times gives one plan, and get_action_batched of
                 R = 2, 3 (padded to 4) and 4 requests equals their single
@@ -86,12 +93,17 @@ Phases, each of which raises on failure:
                 unblur_timestep 1), (c) GroupNorm ConvLSTM cells, (d) the det
                 model; for each, one warm-up and three timed plans, finite
                 and shaped, launching the cell 160 times through sm90 (a,
-                b), 0 times (c) or 80 times through the WMMA kernel (d,
-                260 channels), and the mask kernel 10 times; a profiled plan
-                (device time; for (b) the blur's share of it, the blur timed
-                by CUDA events, beside a 255-tap cuDNN depthwise convolution
-                of the same sums); the WMMA cell against its plain version at
-                det's shapes (B=100, 200 and 400, 6x8, Cx=C=260, k=5 and 3);
+                b), 0 times (c) or 80 times through sm90 (d, 260 channels
+                in padded views; no WMMA launch), and the mask kernel 10
+                times; a profiled plan (device time; for (b) the blur's
+                share of it, the blur timed by CUDA events, beside a
+                255-tap cuDNN depthwise convolution of the same sums); the
+                sm90 cell against its plain version at det's shapes (B=16,
+                100, 200 and 400, 6x8, Cx=C=260, k=5 and 3; pad lanes of
+                x, h and c NaN, one sm90 launch each, finite outputs), and
+                det's row of the kernels line: the sm90 kernel, the WMMA
+                kernel by name on contiguous copies, the plain version and
+                cuDNN's gate conv, timed in turns beside the bound;
                 GPU-vs-CPU parity of small float32 plans (a, c, d) and
                 rollout costs (all four; the blur's within one 1/255 step a
                 pixel on another step); each variant's batched plans (R =
@@ -101,11 +113,14 @@ Phases, each of which raises on failure:
                 training config of bench.py:136-156 for each of those two
                 (heatmaps from the batch's states by create_heatmaps); the
                 trainer's --model copy baseline on the synthetic experiment;
-                a det trainer loading another's checkpoint through
-                --dynamics_model_ckpt and training on from its step.
+                a det trainer whose eval epoch runs its cells through sm90
+                (launches counted), and a second loading its checkpoint
+                through --dynamics_model_ckpt and training on from its step.
 
 Prints the card line, one JSON line each of the train, serve and variants
-phases and one of kernels, then, as the last line,
+phases and one of kernels (the mask kernel, the sm90 cell at the planner's
+shapes and at det's, the WMMA kernel and the float32 CUDA-core kernel,
+each with its launches on its own path), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
@@ -156,6 +171,7 @@ from torch_train_small import (  # noqa: E402
 )
 from torch_variant_cases import (  # noqa: E402
     CANONICAL,
+    CELL_RTOL,
     COST_RTOL,
     PLAN_TOL,
     SMALL,
@@ -187,10 +203,13 @@ EVAL_CELLS = [(16, 6, 8, 256, 256, 5), (16, 6, 8, 256, 256, 3)]
 # two and four requests planned together: B = 2 x 100 and 4 x 100
 SERVE_CELLS = [(B, 6, 8, 256, 256, k) for B in (200, 400) for k in (5, 3)]
 # the det model's plan cells: g_dim 256 + 2 action + 2 state maps = 260
-# channels, which the wgmma/TMA kernel does not take (not a multiple of 8)
+# channels, in views of 264-channel buffers (the layout models/det.py gives
+# them), which the wgmma/TMA kernel takes on its gate-packed copy of the
+# weights (ops/kernels.py:sm90_weights)
 DET_CELLS = [(100, 6, 8, 260, 260, 5), (100, 6, 8, 260, 260, 3)]
-# det planned for two and four requests together: B = 2 x 100 and 4 x 100
-DET_SERVE_CELLS = [(B, 6, 8, 260, 260, k) for B in (200, 400) for k in (5, 3)]
+# det planned for two and four requests together (B = 2 x 100 and 4 x 100)
+# and the det trainer's eval epoch (B = 16)
+DET_SERVE_CELLS = [(B, 6, 8, 260, 260, k) for B in (16, 200, 400) for k in (5, 3)]
 WMMA_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell.cu"
 
 
@@ -251,6 +270,20 @@ def cell_inputs(B, H, W, Cx, C, k, dtype, dev, seed):
     return ([t.to(dev, dtype) for t in (x, h, c, w)] + [b.to(dev)])
 
 
+def det_layout(x, h, c, w, b):
+    """The same cell in det's layout: x, h and c as views of buffers padded
+    to a multiple of 8 channels a pixel whose pad lanes hold NaN (the
+    kernels must never read them), as models/det.py and ops/lstm.py give
+    them."""
+    def padded(t):
+        B, H, W, C = t.shape
+        buf = torch.full((B, H, W, kernels.round_up(C)), float("nan"),
+                         dtype=t.dtype, device=t.device)
+        return buf[..., :C].copy_(t)
+
+    return [padded(x), padded(h), padded(c), w, b]
+
+
 def cell_err(got, want, tol):
     err = 0.0
     for g, w in zip(got, want):
@@ -265,31 +298,66 @@ def check_cells(dev):
     errs = {}
     # the planner's two cells, the trainer's eval cells, then odd shapes:
     # 24/40 channels take the wgmma/TMA kernel in bf16 (a partial channel
-    # tile, a 5x7 map), 13/20 the WMMA kernel's element-wise loads
+    # tile, a 5x7 map), 13/20 the WMMA kernel's element-wise loads; det's
+    # 260 and 258 channels, contiguous (bf16: the WMMA kernel) and in det's
+    # layout (bf16: the wgmma/TMA kernel on its packed weights; 13/20
+    # padded still the WMMA kernel, Cx odd); float32
+    # cells of every shape take the CUDA-core kernel, in either layout
     shapes = PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS + [
-        (3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3)]
+        (3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3), (4, 6, 8, 260, 260, 5),
+        (4, 6, 8, 258, 258, 3)]
+    # 260 channels on a 262-channel pixel stride, not a multiple of 8: the
+    # WMMA kernel, reading the views in place
+    x, h, c, w, b = cell_inputs(2, 6, 8, 260, 260, 3, torch.bfloat16, dev, 3)
+    views = [torch.full((2, 6, 8, 262), float("nan"), dtype=t.dtype,
+                        device=dev)[..., :260].copy_(t) for t in (x, h, c)]
+    before = dict(kernels.launches)
+    got = kernels.conv_lstm_cell(*views, w, b)
+    if (kernels.launches["conv_lstm_cell"] - before["conv_lstm_cell"] != 1
+            or kernels.launches["conv_lstm_cell_sm90"]
+            != before["conv_lstm_cell_sm90"]):
+        raise AssertionError("a 262-channel pixel stride did not take WMMA")
+    tol = CELL_TOL[torch.bfloat16]
+    err = errs[("ld262", "wmma")] = cell_err(
+        got, kernels.conv_lstm_cell_plain(x, h, c, w, b), tol)
+    print(f"cell B,H,W,Cx,C,k=(2, 6, 8, 260, 260, 3) on a 262-channel pixel "
+          f"stride, bf16 wmma: max |kernel - plain| = {err:.3g} (tolerance "
+          f"{tol} abs + rel)")
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             args = cell_inputs(*shape, dtype, dev, seed=sum(shape))
             want = kernels.conv_lstm_cell_plain(*args)
             tol = CELL_TOL[dtype]
-            sm90 = kernels.takes_sm90(*args[:4])
-            if (dtype == torch.bfloat16 and not sm90
-                    and shape in PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS):
-                raise AssertionError(f"{shape} bf16 does not take sm90")
-            runs = {"sm90" if sm90 else "wmma" if dtype == torch.bfloat16
-                    else "f32": kernels.conv_lstm_cell}
-            if sm90 and shape not in SERVE_CELLS:
-                runs["wmma"] = kernels.conv_lstm_cell_wmma
-            for path, fn in runs.items():
-                before = kernels.launches["conv_lstm_cell_sm90"]
-                got = fn(*args)
-                if (kernels.launches["conv_lstm_cell_sm90"] - before
-                        != (path == "sm90")):
-                    raise AssertionError(f"{shape} {dtype}: {path} expected")
-                err = errs[(shape, path)] = cell_err(got, want, tol)
-                print(f"cell B,H,W,Cx,C,k={shape} {dtype} {path}: max "
-                      f"|kernel - plain| = {err:.3g} (tolerance {tol} abs + rel)")
+            layouts = {"": args}
+            if shape[4] % 8:
+                layouts[" padded"] = det_layout(*args)
+            for layout, ins in layouts.items():
+                sm90 = kernels.takes_sm90(*ins[:4])
+                if dtype == torch.bfloat16 and sm90 != (
+                        shape in PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS
+                        or shape[3] == 24 or bool(layout) and shape[3] % 2 == 0):
+                    raise AssertionError(f"{shape}{layout} bf16: sm90 {sm90}")
+                runs = {"sm90" if sm90 else "wmma" if dtype == torch.bfloat16
+                        else "f32": kernels.conv_lstm_cell}
+                if sm90 and shape not in SERVE_CELLS:
+                    runs["wmma"] = kernels.conv_lstm_cell_wmma
+                for path, fn in runs.items():
+                    before = dict(kernels.launches)
+                    got = fn(*ins)
+                    launched = [kernels.launches[n] - before[n] for n in
+                                ("conv_lstm_cell", "conv_lstm_cell_sm90")]
+                    if launched != [1, int(path == "sm90")]:
+                        raise AssertionError(
+                            f"{shape}{layout} {dtype}: {path} expected, "
+                            f"launched {launched}")
+                    if not all(bool(torch.isfinite(t).all()) for t in got):
+                        raise AssertionError(f"{shape}{layout} {dtype} {path}: "
+                                             "non-finite outputs")
+                    err = errs[(shape + (layout,) if layout else shape,
+                                path)] = cell_err(got, want, tol)
+                    print(f"cell B,H,W,Cx,C,k={shape}{layout} {dtype} {path}: "
+                          f"max |kernel - plain| = {err:.3g} (tolerance {tol} "
+                          "abs + rel)")
     return errs
 
 
@@ -381,12 +449,14 @@ def check_serve(local_latency):
     plan, and a PlanServer with concurrent clients
     (tests/torch_serve_cases.py)."""
     dev = torch.device("cuda")
-    inv = cell_invariance(dev)
+    inv = {C: cell_invariance(dev, channels=C) for C in (256, 260)}
     small = small_cell_invariance(dev)
     print("cell kernel, identical bits: 50 launches of identical inputs at "
           "B = 16, 100, 200 and 400, and rows of B = 100 at offsets 0 and "
           "100 of B = 200 and 0, 100, 200 and 300 of B = 400, for k = 5 and "
-          "3; also " + ", ".join(small) + " at small shapes")
+          "3, at 256 channels and at det's 260 (padded views, NaN pad "
+          "lanes); also " + ", ".join(small)
+          + " at small shapes")
     cfg = Config(**CANONICAL)
     model = svg.init(cfg, seed=0, device="cuda")
     policy = CEMPolicy(cfg, model)
@@ -795,23 +865,28 @@ def check_trainer():
 
 # -------------------------------------------------------------- variants
 def check_det_cells(dev):
-    """The WMMA kernel against its plain version at det's plan shapes, of
-    one request and of 2 and 4 planned together, one launch each, none
-    through sm90. Returns max |kernel - plain| by shape."""
+    """The wgmma/TMA kernel against its plain version at det's shapes (one
+    request, 2 and 4 planned together, the eval epoch's B = 16), in det's
+    layout with NaN in the pad lanes (`det_layout`): one sm90 launch each,
+    finite outputs. Returns max |kernel - plain| by shape."""
     errs = {}
     for shape in DET_CELLS + DET_SERVE_CELLS:
-        args = cell_inputs(*shape, torch.bfloat16, dev, seed=sum(shape))
+        raw = cell_inputs(*shape, torch.bfloat16, dev, seed=sum(shape))
+        args = det_layout(*raw)
         before = dict(kernels.launches)
         got = kernels.conv_lstm_cell(*args)
         launched = {k: kernels.launches[k] - before[k] for k in before}
-        if launched != {"conv_lstm_cell": 1, "conv_lstm_cell_sm90": 0,
+        if launched != {"conv_lstm_cell": 1, "conv_lstm_cell_sm90": 1,
                         "capsule_mask_render": 0}:
             raise AssertionError(f"{shape}: launched {launched}, expected one "
-                                 "WMMA launch")
+                                 "sm90 launch")
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            raise AssertionError(f"{shape}: non-finite outputs")
         tol = CELL_TOL[torch.bfloat16]
-        errs[shape] = cell_err(got, kernels.conv_lstm_cell_plain(*args), tol)
-        print(f"cell B,H,W,Cx,C,k={shape} bf16 wmma (det): max |kernel - "
-              f"plain| = {errs[shape]:.3g} (tolerance {tol} abs + rel)")
+        errs[shape] = cell_err(got, kernels.conv_lstm_cell_plain(*raw), tol)
+        print(f"cell B,H,W,Cx,C,k={shape} bf16 sm90 (det: padded views, NaN "
+              f"pad lanes): max |kernel - plain| = "
+              f"{errs[shape]:.3g} (tolerance {tol} abs + rel), outputs finite")
     return errs
 
 
@@ -897,44 +972,124 @@ def time_blur(cfg, dev, busy_ms):
                 cudnn_depthwise_ms=ms_conv, cudnn_depthwise_max_diff=err)
 
 
-def time_wmma_det(dev, launches, errs):
-    """The kernels line's entry for the WMMA kernel of csrc/conv_lstm_cell.cu,
-    which det's plans take (260 channels): device time per launch at det's
-    two shapes (their mean, as the plan launches each equally often), the
-    plain version's, the bound from the operations at 260 channels without
-    zero-border taps, and cuDNN's gate convolution alone."""
+def cell_bound(x, h, c, w, b, peak):
+    """The least time of a cell launch: its operations without the taps on
+    the zero border at `peak`, against each input read once and each output
+    written once (x, h, c and the (k, k, Cx + C, 4C) weights; h', c')."""
+    B, H, W, Cx = x.shape
+    C, k = h.shape[-1], w.shape[0]
+    e = x.element_size()
+    ops = 2.0 * B * valid_taps(H, W, k) * (Cx + C) * 4 * C
+    nbytes = (e * (x.numel() + 4 * h.numel() + k * k * (Cx + C) * 4 * C)
+              + 4 * b.numel())
+    return ops, bound_ms(ops, peak, nbytes)
+
+
+def gate_conv_ms(x, h, w, b):
+    """cuDNN's gate convolution alone: one F.conv2d over cat(x, h),
+    channels-last, in x's type (never called by the port)."""
+    k = w.shape[0]
+    xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return cuda_ms(lambda: F.conv2d(xh, w_oihw, b.to(x.dtype), padding=k // 2))
+
+
+def time_det_cells(dev, launches, errs):
+    """The kernels line's entries for det's cells: the wgmma/TMA kernel in
+    det's layout (padded views), and the WMMA kernel of
+    csrc/conv_lstm_cell.cu, which det's plans took before, called by name
+    on contiguous copies of the same inputs. At det's two plan shapes (the
+    mean of the two, as the plan launches each equally often), in turns
+    (sm90, WMMA, sm90, WMMA, sm90), with the plain version's time, cuDNN's
+    gate convolution and the bound (operations at 260 channels without the
+    zero-border taps)."""
     rows = []
     for shape in DET_CELLS:
         B, H, W, Cx, C, k = shape
-        x, h, c, w, b = cell_inputs(B, H, W, Cx, C, k, torch.bfloat16, dev, 7)
-        run = lambda fn: (lambda: fn(x, h, c, w, b))
-        ms = [cuda_ms(run(kernels.conv_lstm_cell)) for _ in range(2)]
-        plain = cuda_ms(run(kernels.conv_lstm_cell_plain))
-        xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        lib = cuda_ms(lambda: F.conv2d(xh, w_oihw, b.to(torch.bfloat16),
-                                       padding=k // 2))
-        ops = 2.0 * B * valid_taps(H, W, k) * (Cx + C) * 4 * C
-        nbytes = 2 * (x.numel() + h.numel() + c.numel() + w.numel()
-                      + 2 * h.numel()) + 4 * b.numel()
-        bound, by = bound_ms(ops, PEAK_BF16, nbytes)
+        raw = cell_inputs(B, H, W, Cx, C, k, torch.bfloat16, dev, 7)
+        args = det_layout(*raw)
+        if not kernels.takes_sm90(*args[:4]) or kernels.takes_sm90(*raw[:4]):
+            raise AssertionError(f"{shape}: routing by layout failed")
+        sm90 = lambda: kernels.conv_lstm_cell(*args)
+        wmma = lambda: kernels.conv_lstm_cell_wmma(*raw)
+        ms, wmma_ms = [cuda_ms(sm90)], []
+        for _ in range(2):
+            wmma_ms.append(cuda_ms(wmma))
+            ms.append(cuda_ms(sm90))
+        wmma_err = cell_err(wmma(), kernels.conv_lstm_cell_plain(*raw),
+                            CELL_TOL[torch.bfloat16])
+        plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(*args))
+        lib = gate_conv_ms(*raw[:2], raw[3], raw[4])
+        ops, (bound, by) = cell_bound(*raw, PEAK_BF16)
+        s = kernels.sm90_schedule(B, H, W, Cx, C, k, dev)
         row = dict(B=B, k=k, Cx=Cx, C=C, ms=float(np.mean(ms)), ms_runs=ms,
-                   plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                   gflop=ops / 1e9, max_abs_err=errs[shape])
+                   wmma_ms=float(np.mean(wmma_ms)), wmma_ms_runs=wmma_ms,
+                   wmma_max_abs_err=wmma_err, plain_ms=plain, library_ms=lib,
+                   bound_ms=bound, bound_by=by, gflop=ops / 1e9,
+                   gflop_multiplied=2.0 * s["macs"] / 1e9, tail=s["tail"],
+                   tiles=s["tiles"], blocks=s["grid"], steps=s["steps"],
+                   max_abs_err=errs[shape])
         rows.append(row)
-        print(f"cell B={B} k={k} Cx=C={C} bf16 (det): WMMA kernel "
+        print(f"cell B={B} k={k} Cx=C={C} bf16 (det): wgmma/TMA kernel "
               f"{row['ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in ms)}), "
-              f"plain {plain:.4f} ms, cuDNN gate conv {lib:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}, {row['gflop']:.1f} GFLOP without the "
-              f"zero border) = {row['ms'] / bound:.1f}x the bound")
+              f"WMMA kernel {row['wmma_ms']:.4f} ms ("
+              + ", ".join(f"{v:.4f}" for v in wmma_ms)
+              + f") = {row['wmma_ms'] / row['ms']:.2f}x, plain {plain:.4f} ms, "
+              f"cuDNN gate conv {lib:.4f} ms (kernel {row['ms'] / lib:.3f}x "
+              f"it), bound {bound:.4f} ms ({by}, {row['gflop']:.1f} GFLOP "
+              f"without the zero border, {row['gflop_multiplied']:.1f} "
+              f"multiplied) = {row['ms'] / bound:.2f}x the bound; tail layout "
+              f"{s['tail']}, {s['tiles']} tiles, {s['steps']} k-steps")
     mean = lambda key: sum(r[key] for r in rows) / len(rows)
-    return dict(name="conv_lstm_cell_wmma", route="cuda", source=WMMA_SRC,
-                replaces=CELL_REPLACES, launches=launches,
-                max_abs_err=max(r["max_abs_err"] for r in rows), ms=mean("ms"),
-                plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-                bound_by=rows[0]["bound_by"], library_ms=mean("library_ms"),
-                per_shape=rows)
+    common = dict(replaces=CELL_REPLACES, route="cuda",
+                  bound_ms=mean("bound_ms"), bound_by=rows[0]["bound_by"],
+                  library_ms=mean("library_ms"), plain_ms=mean("plain_ms"))
+    sm90_entry = dict(common, name="conv_lstm_cell_sm90_det", source=CELL_SRC,
+                      launches=launches,
+                      max_abs_err=max(r["max_abs_err"] for r in rows),
+                      ms=mean("ms"), wmma_ms=mean("wmma_ms"), per_shape=rows)
+    wmma_entry = dict(common, name="conv_lstm_cell_wmma", source=WMMA_SRC,
+                      launches=0,
+                      max_abs_err=max(r["wmma_max_abs_err"] for r in rows),
+                      ms=mean("wmma_ms"),
+                      per_shape=[dict(B=r["B"], k=r["k"], ms=r["wmma_ms"],
+                                      ms_runs=r["wmma_ms_runs"])
+                                 for r in rows])
+    return sm90_entry, wmma_entry
+
+
+def time_f32_cell(dev, errs, launches):
+    """The kernels line's entry for the float32 CUDA-core kernel of
+    csrc/conv_lstm_cell.cu at the planner's shapes (no plan of the
+    canonical config launches it: float32 cells run in the GPU-vs-CPU
+    parity phases, `launches`), beside the plain version, cuDNN's float32
+    gate conv with TF32 off, and its bound at 67 TFLOP/s float32."""
+    rows = []
+    for shape in PLANNER_CELLS:
+        B, H, W, Cx, C, k = shape
+        args = cell_inputs(B, H, W, Cx, C, k, torch.float32, dev, 7)
+        ms = [cuda_ms(lambda: kernels.conv_lstm_cell(*args), n=5)
+              for _ in range(2)]
+        plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(*args), n=5)
+        lib = gate_conv_ms(*args[:2], args[3], args[4])
+        ops, (bound, by) = cell_bound(*args, PEAK_F32)
+        rows.append(dict(B=B, k=k, ms=float(np.mean(ms)), ms_runs=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=bound,
+                         bound_by=by, gflop=ops / 1e9,
+                         max_abs_err=errs[(shape, "f32")]))
+        print(f"cell B={B} k={k} float32 (CUDA cores): kernel "
+              f"{rows[-1]['ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in ms)})"
+              f", plain {plain:.4f} ms, cuDNN float32 gate conv (TF32 off) "
+              f"{lib:.4f} ms, bound {bound:.4f} ms ({by}, {ops / 1e9:.1f} "
+              f"GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s) = "
+              f"{rows[-1]['ms'] / bound:.2f}x the bound")
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    return dict(name="conv_lstm_cell_f32", route="cuda", source=WMMA_SRC,
+                replaces=CELL_REPLACES, launches=0, launches_parity=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=mean("ms"), plain_ms=mean("plain_ms"),
+                bound_ms=mean("bound_ms"), bound_by=rows[0]["bound_by"],
+                library_ms=mean("library_ms"), per_shape=rows)
 
 
 def variant_train_step(name, dev):
@@ -982,7 +1137,8 @@ def check_copy_and_resume():
     """The trainer's --model copy baseline on the synthetic experiment
     (finite metrics over full train and test epochs, PSNR finite or +inf,
     no kernel launched);
-    then a det trainer at full width trains an epoch and saves, and a
+    then a det trainer at full width trains an epoch, runs its eval epoch
+    through the sm90 cell (launches counted) and saves, and a
     second one, given that checkpoint by --dynamics_model_ckpt, starts
     from its weights and step and trains on."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1008,8 +1164,19 @@ def check_copy_and_resume():
             f"{m['autoreg_ssim']:.4f}, world {m['autoreg_world_loss']:.5f}"
             for split, m in copy.items()))
         det = dict(base, model="det", log_dir=d)
-        first = PredictionTrainer(Config(**dict(det, jobname="det0")))
+        # the first det trainer runs an eval epoch: its cells (B = 16,
+        # 260 channels) through sm90, 2 a model step
+        first = PredictionTrainer(Config(**dict(det, jobname="det0",
+                                                eval_interval=1)))
+        kernels.reset_launches()
         first.train()
+        det_eval = dict(kernels.launches)
+        cells = (2 * (base["n_eval"] - 1) * (base["video_length"] // base["n_eval"])
+                 * 2 * 2)  # 1-step and autoregressive, 2 test batches
+        if det_eval != {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
+                        "capsule_mask_render": 0}:
+            raise AssertionError(f"det trainer's eval epoch launched "
+                                 f"{det_eval}, expected {cells} sm90 cells")
         path = ckpt.latest_checkpoint(first.log_dir)
         first.logger.close()
         cfg = Config(**dict(det, jobname="det1", dynamics_model_ckpt=path))
@@ -1026,25 +1193,30 @@ def check_copy_and_resume():
         if probe._step != first._step or second._step != first._step + per_epoch:
             raise AssertionError(f"steps: first {first._step}, loaded "
                                  f"{probe._step}, trained on {second._step}")
-    print(f"--dynamics_model_ckpt: a det trainer loaded {os.path.basename(path)}"
-          f" (every tensor equal, step {probe._step}) and trained on to step "
-          f"{second._step}")
+    print(f"det trainer's eval epoch: {cells} cell launches, all through "
+          f"sm90; --dynamics_model_ckpt: a det trainer loaded "
+          f"{os.path.basename(path)} (every tensor equal, step {probe._step}) "
+          f"and trained on to step {second._step}")
     return dict(copy=copy, copy_seconds=copy_s, det_loaded_step=probe._step,
-                det_trained_to=second._step)
+                det_trained_to=second._step, det_eval_sm90=cells)
 
 
 def check_variants(dev):
     """Phase 11 (see the module docstring). Returns its JSON line's dict
-    and the kernels line's WMMA entry."""
+    and the kernels line's entries for det's cells: the sm90 kernel and the
+    WMMA kernel it replaced there."""
     out = {"plans": {}}
     det_errs = check_det_cells(dev)
     for name in VARIANTS:
-        err, flips = small_cost_parity(name)
+        err, flips, cell_err = small_cost_parity(name)
         print(f"small f32 {name} rollout costs, GPU vs CPU: max |diff| / |cost|"
               f" = {err:.3g} (tolerance {COST_RTOL}"
               + (f", plus one 1/255 step for each of {flips} pixels on "
-                 "another blur step)" if name == "blur" else ")"))
-        out.setdefault("cost_parity", {})[name] = dict(rel_err=err, flips=flips)
+                 "another blur step)" if name == "blur" else ")")
+              + f"; cell states: max |diff| / max |CPU| = {cell_err:.3g} "
+              f"(tolerance {CELL_RTOL})")
+        out.setdefault("cost_parity", {})[name] = dict(
+            rel_err=err, flips=flips, cell_rel_err=cell_err)
         if name != "blur":
             err, launched = small_plan_parity(name)
             print(f"small f32 {name} plan, GPU vs CPU: max |diff| = {err:.3g} "
@@ -1063,18 +1235,18 @@ def check_variants(dev):
         if name == "blur":
             plans["blur"] = time_blur(cfg, dev, plans.get("busy_ms"))
         if name == "det":
-            det_launches = (plans["launches"]["conv_lstm_cell"]
-                            - plans["launches"]["conv_lstm_cell_sm90"])
+            det_launches = plans["launches"]["conv_lstm_cell_sm90"]
         # the server's guarantee for every model it loads
         checks = plan_checks(policy, repeats=2, batch_sizes=(2, 4))
         print(f"{name} plans: one request twice, one plan; batched == single "
               "bit for bit at R = 2 and 4")
         plans["batched_diff"] = checks["batched"]
         out["plans"][name] = plans
-    wmma = time_wmma_det(dev, det_launches, det_errs)
+    det_entries = time_det_cells(dev, det_launches, det_errs)
     out["train"] = {name: variant_train_step(name, dev) for name in TRAIN_VARIANTS}
     out["trainer"] = check_copy_and_resume()
-    return out, wmma
+    det_entries[0]["launches_trainer_eval"] = out["trainer"]["det_eval_sm90"]
+    return out, det_entries
 
 
 def main() -> int:
@@ -1106,7 +1278,10 @@ def main() -> int:
     phase("cell")
     cell_errs = check_cells(dev)
     phase("parity")
+    kernels.reset_launches()
     check_small_plan_parity()
+    # every cell of the small float32 plans goes to the CUDA-core kernel
+    f32_launches = kernels.launches["conv_lstm_cell"]
 
     phase("plan")
     launches, policy, start, goal, latency = canonical_plans()
@@ -1117,6 +1292,7 @@ def main() -> int:
         time_mask(dev, launches["capsule_mask_render"], mask_err),
         time_cell(dev, launches["conv_lstm_cell_sm90"], cell_errs),
     ]}
+    f32_entry = time_f32_cell(dev, cell_errs, f32_launches)
     phase("serve")
     serve = check_serve(latency)
     for entry, name in zip(line["kernels"],
@@ -1135,8 +1311,8 @@ def main() -> int:
 
     # the model variants: heatmaps, the blur cost, GroupNorm cells, det
     phase("variants")
-    variants, wmma = check_variants(dev)
-    line["kernels"].append(wmma)
+    variants, det_entries = check_variants(dev)
+    line["kernels"] += [*det_entries, f32_entry]
     for entry, name in zip(line["kernels"][:2],
                            ("capsule_mask_render", "conv_lstm_cell_sm90")):
         entry["launches_variants"] = {

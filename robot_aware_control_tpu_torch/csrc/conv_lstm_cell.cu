@@ -25,15 +25,17 @@
 //     whose operands are staged through two shared-memory buffers: the next
 //     tile's 16-byte global loads are in flight while the warps multiply
 //     the current one. The sums go through shared memory to the fused LSTM
-//     update. The wrapper sends it only the bf16 shapes TMA cannot
-//     describe (channel counts not multiples of 8, unaligned tensors); the
-//     planner's cells take the wgmma/TMA kernel of conv_lstm_cell_sm90.cu,
-//     about 6x faster at k = 5.
+//     update. The wrapper sends it only the bf16 cells TMA cannot
+//     describe (odd channel counts, pixel strides that are not multiples of
+//     8, unaligned tensors); the planner's and det's cells take the
+//     wgmma/TMA kernel of conv_lstm_cell_sm90.cu, about 6x faster at k = 5.
 //   * float32: plain FMA loops on the CUDA cores over shared-memory tiles,
 //     so that float32 cells agree with float32 references to float32
 //     rounding.
 // Weights arrive in HWIO order, (k, k, Cx + C, 4C) contiguous, in x's type,
-// packed once at load.
+// packed once at load. x, h, c and the outputs are NHWC with contiguous
+// channels at a pixel stride of the caller's (ldx, ldh, ldc, ldo): a (B, H,
+// W, C) view of a buffer with more channels a pixel is read in place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +69,7 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ c, const float* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ h_out,
                 float* __restrict__ c_out, int M, int H, int W, int Cx, int C,
-                int k) {
+                int k, long long ldx, long long ldh, long long ldc, long long ldo) {
   __shared__ __align__(16) float As[BK][A_LD];
   __shared__ __align__(16) float Bs[BK][4 * BN];
 
@@ -124,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
         float v = 0.0f;
         if (a_ok[r] && ci < Cin && yy >= 0 && yy < H && xx >= 0 && xx < W) {
           const long long pix = (static_cast<long long>(a_b[r]) * H + yy) * W + xx;
-          v = ci < Cx ? x[pix * Cx + ci] : h[pix * C + (ci - Cx)];
+          v = ci < Cx ? x[pix * ldx + ci] : h[pix * ldh + (ci - Cx)];
         }
         As[a_kk[r]][a_mm[r]] = v;
       }
@@ -177,8 +179,8 @@ __global__ void __launch_bounds__(kThreads)
       const float gf = sigmoid(acc[i][j][1]);
       const float go = sigmoid(acc[i][j][2]);
       const float gg = tanhf(acc[i][j][3]);
-      const long long o = static_cast<long long>(m) * C + n;
-      const float c_new = gf * c[o] + gi * gg;
+      const float c_new = gf * c[m * ldc + n] + gi * gg;
+      const long long o = m * ldo + n;
       h_out[o] = go * tanhf(c_new);
       c_out[o] = c_new;
     }
@@ -225,14 +227,15 @@ __device__ __forceinline__ uint4 load8(const uint16_t* p, int n, bool vec) {
   return make_uint4(u[0], u[1], u[2], u[3]);
 }
 
-// vec: Cx and C are multiples of 8 and x, h, w are 16-byte aligned, so no
-// 8-channel group straddles x and h or the end of a row.
+// vec: Cx, C and the pixel strides of x and h are multiples of 8 and x, h, w are 16-byte aligned, so no 8-channel group
+// straddles x and h or the end of a row.
 __global__ void __launch_bounds__(kThreads, 2)
     cell_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ h,
                 const bf16* __restrict__ c, const uint16_t* __restrict__ w,
                 const float* __restrict__ bias, bf16* __restrict__ h_out,
                 bf16* __restrict__ c_out, int M, int H, int W, int Cx, int C,
-                int k, bool vec) {
+                int k, long long ldx, long long ldh, long long ldc, long long ldo,
+                bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);  // [2][BM][A_LD]  pixels x channels
   bf16* Bs = As + 2 * A_STAGE;               // [2][BK][B_LD]  channels x columns
@@ -295,15 +298,15 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (!a_ok[r] || yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
       const long long pix = (static_cast<long long>(a_b[r]) * H + yy) * W + xx;
       if (vec) {
-        if (ci < Cx) ra[r] = load8(x + pix * Cx + ci, 8, true);
-        else if (ci < Cin) ra[r] = load8(h + pix * C + (ci - Cx), 8, true);
+        if (ci < Cx) ra[r] = load8(x + pix * ldx + ci, 8, true);
+        else if (ci < Cin) ra[r] = load8(h + pix * ldh + (ci - Cx), 8, true);
       } else {
         uint32_t u[4] = {0, 0, 0, 0};
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int cc = ci + i;
-          const uint32_t v = cc < Cx    ? x[pix * Cx + cc]
-                             : cc < Cin ? h[pix * C + (cc - Cx)]
+          const uint32_t v = cc < Cx    ? x[pix * ldx + cc]
+                             : cc < Cin ? h[pix * ldh + (cc - Cx)]
                                         : 0u;
           u[i / 2] |= v << (16 * (i % 2));
         }
@@ -382,8 +385,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float gf = sigmoid(g[BN] + bias[C + n]);
     const float go = sigmoid(g[2 * BN] + bias[2 * C + n]);
     const float gg = tanhf(g[3 * BN] + bias[3 * C + n]);
-    const long long o = static_cast<long long>(m) * C + n;
-    const float c_new = gf * __bfloat162float(c[o]) + gi * gg;
+    const float c_new = gf * __bfloat162float(c[m * ldc + n]) + gi * gg;
+    const long long o = m * ldo + n;
     h_out[o] = __float2bfloat16_rn(go * tanhf(c_new));
     c_out[o] = __float2bfloat16_rn(c_new);
   }
@@ -395,12 +398,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // x (B, H, W, Cx), h and c (B, H, W, C), w (k, k, Cx + C, 4C) in one type
 // (float32 or bfloat16), bias (4C,) float32, outputs (B, H, W, C) in the
-// inputs' type; all contiguous on the device. Each returns the cudaError_t
-// of its launch (0 on success).
+// inputs' type, on the device. x, h, c and the outputs have
+// contiguous channels and pixel strides ldx, ldh, ldc and ldo (elements; a
+// contiguous tensor's is its channel count), w and bias are contiguous.
+// Each returns the cudaError_t of its launch (0 on success).
 extern "C" int conv_lstm_cell_f32(const void* x, const void* h, const void* c,
                                   const void* w, const void* b, void* h_out,
                                   void* c_out, int B, int H, int W, int Cx,
-                                  int C, int k, void* stream) {
+                                  int C, int k, int ldx, int ldh, int ldc, int ldo,
+                                  void* stream) {
   const int M = B * H * W;
   if (M == 0) return 0;
   const dim3 grid((M + simt::BM - 1) / simt::BM, (C + simt::BN - 1) / simt::BN);
@@ -409,14 +415,15 @@ extern "C" int conv_lstm_cell_f32(const void* x, const void* h, const void* c,
       static_cast<const float*>(x), static_cast<const float*>(h),
       static_cast<const float*>(c), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<float*>(h_out),
-      static_cast<float*>(c_out), M, H, W, Cx, C, k);
+      static_cast<float*>(c_out), M, H, W, Cx, C, k, ldx, ldh, ldc, ldo);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int conv_lstm_cell_bf16(const void* x, const void* h, const void* c,
                                    const void* w, const void* b, void* h_out,
                                    void* c_out, int B, int H, int W, int Cx,
-                                   int C, int k, void* stream) {
+                                   int C, int k, int ldx, int ldh, int ldc, int ldo,
+                                   void* stream) {
   const int M = B * H * W;
   if (M == 0) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -426,14 +433,14 @@ extern "C" int conv_lstm_cell_bf16(const void* x, const void* h, const void* c,
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const bool vec = Cx % 8 == 0 && C % 8 == 0 && aligned(x) && aligned(h) &&
-                   aligned(w);
+  const bool vec = Cx % 8 == 0 && C % 8 == 0 && ldx % 8 == 0 &&
+                   ldh % 8 == 0 && aligned(x) && aligned(h) && aligned(w);
   const dim3 grid((M + tc::BM - 1) / tc::BM, (C + tc::BN - 1) / tc::BN);
   tc::cell_kernel<<<grid, tc::kThreads, tc::kSmemBytes,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(h),
       static_cast<const __nv_bfloat16*>(c), static_cast<const uint16_t*>(w),
       static_cast<const float*>(b), static_cast<__nv_bfloat16*>(h_out),
-      static_cast<__nv_bfloat16*>(c_out), M, H, W, Cx, C, k, vec);
+      static_cast<__nv_bfloat16*>(c_out), M, H, W, Cx, C, k, ldx, ldh, ldc, ldo, vec);
   return static_cast<int>(cudaGetLastError());
 }

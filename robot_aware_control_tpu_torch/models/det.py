@@ -7,9 +7,13 @@ ConvEncoder -> [action/state projected by a Linear into 2-channel maps at
 attention channel for compositing. No prior, no posterior, no draws.
 
 The ConvLSTM runs g_dim + 2 action maps (+ 2 state maps) channels, 260 at
-g_dim 256: not a multiple of 8, so at inference a bf16 cell takes the WMMA
-kernel of csrc/conv_lstm_cell.cu rather than the wgmma/TMA one
-(ops/kernels.py:takes_sm90).
+g_dim 256 (258 without the state maps): not a multiple of 8, so a
+contiguous (B, H, W, 260) bf16 tensor has 520-byte pixel rows, which TMA
+cannot describe. The cell input and the carries are therefore views of
+buffers padded to a multiple of 8 channels a pixel (kernels.padded_nhwc;
+the lanes past 260 are never read), and the cells take the wgmma/TMA
+kernel (ops/kernels.py:takes_sm90) with the parameters' shapes unchanged.
+Public shapes stay (B, H, W, 260); only strides differ.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models.common import init_weights
 from robot_aware_control_tpu_torch.models.svg import compute_dtype
+from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.ops import lstm as L
 from robot_aware_control_tpu_torch.ops.encoders import ConvDecoder, ConvEncoder
 from robot_aware_control_tpu_torch.ops.nn import Linear
@@ -76,8 +81,13 @@ class Det(nn.Module):
         feats = [h, self.action_enc(action.to(dtype)).reshape(-1, fh, fw, 2)]
         if cfg.model_use_robot_state:
             feats.append(self.state_enc(robot.to(dtype)).reshape(-1, fh, fw, 2))
+        # the cell input, written by one cat into a buffer padded to a
+        # multiple of 8 channels a pixel and viewed at its width
+        c = sum(f.shape[-1] for f in feats)
+        pad = h.new_empty(*h.shape[:3], kernels.round_up(c) - c)
+        x = torch.cat(feats + [pad], -1)[..., :c]
         h_pred, frame_carry = self.frame_lstm(
-            torch.cat(feats, -1), carry.frame, cfg.fused_lstm and not train)
+            x, carry.frame, cfg.fused_lstm and not train)
         x_pred = self.decoder(h_pred, skip, stats)
         out = {"x_pred": x_pred, "skip": skip, "curr_skip": curr_skip,
                "bn_stats": stats}
@@ -94,6 +104,8 @@ def init(cfg: Config, seed: int = 0, device="cuda", train: bool = False) -> Det:
 
 def init_carry(cfg: Config, batch: int, dtype=torch.float32,
                device=None) -> Carry:
+    """Zero carries, views of buffers padded to a multiple of 8 channels a
+    pixel (the cell kernel returns h' and c' in the same layout)."""
     fh, fw = cfg.feat_height, cfg.feat_width
     return Carry(frame=L.zero_state(batch, fh, fw, _lstm_channels(cfg), dtype,
                                     device))

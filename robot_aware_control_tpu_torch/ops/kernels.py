@@ -6,15 +6,22 @@ Two kernels replace the JAX package's two Pallas kernels
   * `capsule_mask_render`  (csrc/capsule_mask.cu): segment parameters
     (M, S, 6) -> robot masks (M, h, w) in {0, 1};
   * `conv_lstm_cell`: one ConvLSTM cell, gates accumulated in float32,
-    outputs in the input's type. bf16 cells whose channel counts are
-    multiples of 8 on 16-byte aligned tensors (the planner's) take the
-    wgmma/TMA kernel of csrc/conv_lstm_cell_sm90.cu; other bf16 shapes the
-    WMMA kernel and float32 cells the CUDA-core kernel of
-    csrc/conv_lstm_cell.cu. The path depends only on dtype, shape and
-    alignment, and each kernel's result for a batch entry depends on that
-    entry's inputs alone: not on B, not on where the entry sits in the
-    batch, not on the order in which blocks finish (the planner's batched
-    and single plans rely on it, planning/cem.py).
+    outputs in the input's type. x, h and c are NHWC with contiguous
+    channels and may be views of a buffer with more channels a pixel
+    (`padded_nhwc`): every kernel reads them at their pixel stride, and h'
+    and c' come back in h's layout. bf16 cells with even channel counts
+    whose pixel strides are multiples of 8 elements, on 16-byte aligned
+    tensors (the planner's, and det's 260 channels in padded views), take
+    the wgmma/TMA kernel of csrc/conv_lstm_cell_sm90.cu (`takes_sm90`);
+    other bf16 cells the WMMA kernel and float32 cells the CUDA-core
+    kernel of csrc/conv_lstm_cell.cu. Every path takes the weights as
+    (k, k, Cx + C, 4C); the wrapper gives the wgmma/TMA kernel alone a
+    gate-packed copy where C is not a multiple of 8 (`sm90_weights`). The
+    path depends only on dtype, shape, strides and alignment, and each
+    kernel's result for a batch entry depends on that entry's inputs
+    alone: not on B, not on where the entry sits in the batch, not on the
+    order in which blocks finish (the planner's batched and single plans
+    rely on it, planning/cem.py).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback from one to the
@@ -23,8 +30,9 @@ pointers and carry no autograd node, so on CUDA tensors a wrapper raises
 when autograd is recording and an input requires grad, instead of
 returning outputs that would silently cut the gradient. The sources are
 compiled with nvcc into plain-C shared libraries on first use (into
-`_build/` beside this package, keyed by the source's hash) and loaded with
-ctypes. Every launch adds one to `launches[<name>]`.
+`_build/` beside this package, keyed by the hash of the source, the headers
+of csrc/ and the flags) and loaded with ctypes. Every launch adds one to
+`launches[<name>]`.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import time
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -102,9 +111,11 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     src, flags = SOURCES[name]
-    with open(os.path.join(_CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}_{digest[:16]}.so")
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for f in [src] + sorted(n for n in os.listdir(_CSRC) if n.endswith(".h")):
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 
 def build(names=None) -> dict:
@@ -140,25 +151,32 @@ def build(names=None) -> dict:
     return paths
 
 
+def bind(name: str, lib):
+    """Sets the argument types of library `name`'s functions on `lib` (a
+    ctypes.CDLL of it). Returns lib."""
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    if name == "capsule_mask":
+        fns = [(lib.capsule_mask_render, [ptr, ptr, i, i, i, i, ptr])]
+    elif name == "conv_lstm_cell_sm90":
+        # pointers, B, H, W, Cx, C, k, the four pixel strides, the
+        # weights' gate stride and tail block column, the stream
+        fns = [(lib.conv_lstm_cell_sm90, [ptr] * 9 + [i] * 12 + [ptr]),
+               (lib.conv_lstm_cell_sm90_schedule, [i] * 7 + [ptr])]
+    else:
+        # pointers, B, H, W, Cx, C, k, the four pixel strides, the stream
+        fns = [(fn, [ptr] * 7 + [i] * 10 + [ptr])
+               for fn in (lib.conv_lstm_cell_f32, lib.conv_lstm_cell_bf16)]
+    for fn, types in fns:
+        fn.argtypes = types
+        fn.restype = i
+    return lib
+
+
 def _lib(name: str):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build([name])[name])
-            ptr, i = ctypes.c_void_p, ctypes.c_int
-            if name == "capsule_mask":
-                lib.capsule_mask_render.argtypes = [ptr, ptr, i, i, i, i, ptr]
-                lib.capsule_mask_render.restype = i
-            elif name == "conv_lstm_cell_sm90":
-                lib.conv_lstm_cell_sm90.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
-                lib.conv_lstm_cell_sm90.restype = i
-                lib.conv_lstm_cell_sm90_schedule.argtypes = [i] * 6 + [ptr]
-                lib.conv_lstm_cell_sm90_schedule.restype = i
-            else:
-                for fn in (lib.conv_lstm_cell_f32, lib.conv_lstm_cell_bf16):
-                    fn.argtypes = [ptr] * 7 + [i] * 6 + [ptr]
-                    fn.restype = i
-            _libs[name] = lib
+            lib = _libs[name] = bind(name, ctypes.CDLL(build([name])[name]))
         return lib
 
 
@@ -277,7 +295,8 @@ def capsule_mask_render(segs: torch.Tensor, h: int, w: int) -> torch.Tensor:
 def conv_lstm_cell_plain(x, h, c, w, b):
     """x (B,H,W,Cx), h/c (B,H,W,C), w (k,k,Cx+C,4C) HWIO, b (4C,) float32.
     Gates in float32 from the inputs' values (as the Pallas kernel
-    accumulates), outputs rounded to x's type. Returns (h_new, c_new)."""
+    accumulates), outputs rounded to x's type. Takes views of padded
+    buffers (`padded_nhwc`) as they are; returns contiguous (h_new, c_new)."""
     k = w.shape[0]
     xh = torch.cat([x, h], -1).float().permute(0, 3, 1, 2)
     g = F.conv2d(xh, w.float().permute(3, 2, 0, 1), b.float(), padding=k // 2)
@@ -291,6 +310,87 @@ _CELL_FN = {torch.float32: "conv_lstm_cell_f32",
             torch.bfloat16: "conv_lstm_cell_bf16"}
 
 
+def round_up(n: int, m: int = 8) -> int:
+    return -(-n // m) * m
+
+
+# columns of the narrow tail's block in packed weights: the 8 hidden
+# channels from C rounded down to 64, of each gate
+TAIL_COLUMNS = 4 * 8
+
+
+def pack_gate_weights(w: torch.Tensor, C: int) -> torch.Tensor:
+    """w (k, k, Cin, 4C) -> the wgmma/TMA kernel's copy (k, k, Cin, 4 Cp +
+    32), Cp = round_up(C, 64): each gate's C columns followed by zeros, so
+    that every gate starts on a 128-byte boundary (TMA starts a box only on
+    a 16-byte one, and boxes whose rows straddle 128-byte lines are
+    slower), then a block of 32 columns: the 8 channels from C rounded
+    down to 64 of each gate (zeros past C), which the kernel's narrow tail
+    loads as one box. w itself where C is a multiple of 64."""
+    Cp = round_up(C, 64)
+    if Cp == C:
+        return w
+    k, _, cin, _ = w.shape
+    t0 = C // 64 * 64
+    gates = w.new_zeros(k, k, cin, 4, Cp)
+    gates[..., :C] = w.reshape(k, k, cin, 4, C)
+    return torch.cat([gates.reshape(k, k, cin, 4 * Cp),
+                      gates[..., t0:t0 + 8].reshape(k, k, cin, TAIL_COLUMNS)], -1)
+
+
+# weights -> (their version, data pointer, the packed copy): one copy per
+# weight tensor, made again when the tensor is written or replaced
+_sm90_packed = WeakIdKeyDictionary()
+
+
+def sm90_weights(w: torch.Tensor, C: int):
+    """The weights as the wgmma/TMA kernel takes them and their gate
+    stride: w and C where C is a multiple of 8, else `pack_gate_weights`'s
+    copy (made once per version of w) and round_up(C, 64). Only that kernel
+    reads the copy; every other path takes w (k, k, Cin, 4C)."""
+    if C % 8 == 0:
+        return w, C
+    stamp = (w._version, w.data_ptr())
+    hit = _sm90_packed.get(w)
+    if hit is None or hit[0] != stamp:
+        # a plain tensor even when a planner runs under inference_mode
+        with torch.inference_mode(False), torch.no_grad():
+            hit = (stamp, pack_gate_weights(w, C))
+        _sm90_packed[w] = hit
+    return hit[1], round_up(C, 64)
+
+
+def padded_nhwc(B, H, W, C, dtype=torch.bfloat16, device=None,
+                zero: bool = False) -> torch.Tensor:
+    """A (B, H, W, C) tensor that is a view of a (B, H, W, round_up(C, 8))
+    buffer: its pixel stride is a multiple of 8 elements (16 bytes in bf16),
+    which TMA needs, so a bf16 cell of any even channel count on such views
+    takes the wgmma/TMA kernel. The lanes past C are never read by the cell
+    kernels; `zero` zeroes the buffer, else it is uninitialised."""
+    make = torch.zeros if zero else torch.empty
+    return make(B, H, W, round_up(C), dtype=dtype, device=device)[..., :C]
+
+
+def pixel_stride(t: torch.Tensor):
+    """The pixel stride of an NHWC tensor whose channels are contiguous and
+    whose B, H and W are dense above them (a contiguous tensor, or a view
+    of the first channels of one), in elements; None for any other layout."""
+    if t.dim() != 4:
+        return None
+    B, H, W, C = t.shape
+    ld = t.stride(2)
+    if (t.stride(3) != 1 and C > 1) or ld < C:
+        return None
+    return ld if t.stride(1) == W * ld and t.stride(0) == H * W * ld else None
+
+
+def empty_nhwc_like(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor of t's shape, dtype, device and pixel stride."""
+    B, H, W, C = t.shape
+    ld = pixel_stride(t) or C
+    return torch.empty(B, H, W, ld, dtype=t.dtype, device=t.device)[..., :C]
+
+
 def _check_cell(x, h, c, w, b):
     """Checks the shapes of a cell's inputs; returns (B, H, W, Cx, C, k)."""
     _check(x.dim() == 4 and h.dim() == 4 and h.shape == c.shape
@@ -302,8 +402,8 @@ def _check_cell(x, h, c, w, b):
     k = w.shape[0]
     _check(w.dim() == 4 and tuple(w.shape) == (k, k, Cx + C, 4 * C)
            and k % 2 == 1,
-           f"w must be (k, k, {Cx + C}, {4 * C}) with odd k, "
-           f"got {tuple(w.shape)}")
+           f"w must be (k, k, {Cx + C}, {4 * C}) with odd k, got "
+           f"{tuple(w.shape)}")
     _check(tuple(b.shape) == (4 * C,), f"b must be ({4 * C},)")
     return Bn, H, W, Cx, C, k
 
@@ -317,85 +417,117 @@ def _check_cuda_cell(x, h, c, w, b):
            f"x, h, c, w must share float32 or bfloat16, got "
            f"{x.dtype}/{h.dtype}/{c.dtype}/{w.dtype}")
     _check(b.dtype == torch.float32, "b must be float32")
-    _check(all(t.is_contiguous() for t in (x, h, c, w, b)),
-           "inputs must be contiguous")
-    _check(x.numel() < 2 ** 31 and h.numel() < 2 ** 31
+    _check(w.is_contiguous() and b.is_contiguous(),
+           "w and b must be contiguous")
+    _check(all(pixel_stride(t) is not None for t in (x, h, c)),
+           "x, h and c must be NHWC with contiguous channels and B, H, W "
+           "dense above them (contiguous, or views of padded buffers)")
+    _check(all(t.shape[0] * t.stride(0) < 2 ** 31 for t in (x, h, c))
            and w.numel() < 2 ** 31, "inputs too large for 32-bit indexing")
 
 
 def takes_sm90(x, h, c, w) -> bool:
-    """Whether a CUDA cell takes the wgmma/TMA kernel: bf16, channel counts
-    that are multiples of 8 (TMA's 16-byte row strides) and 16-byte aligned
-    tensors."""
-    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
-            and h.shape[-1] % 8 == 0
+    """Whether a CUDA cell takes the wgmma/TMA kernel: bf16, even channel
+    counts, x, h and c NHWC with contiguous channels, B, H, W dense above
+    them and pixel strides that are multiples of 8 elements (TMA's 16-byte
+    strides), and 16-byte aligned tensors. A contiguous cell of 260
+    channels does not qualify (520-byte rows); the same cell on views of
+    264-channel buffers (`padded_nhwc`) does."""
+    lds = [pixel_stride(t) for t in (x, h, c)]
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 2 == 0
+            and h.shape[-1] % 2 == 0
+            and all(ld is not None and ld % 8 == 0 for ld in lds)
             and all(t.data_ptr() % 16 == 0 for t in (x, h, c, w)))
 
 
 @functools.lru_cache(maxsize=None)
 def _sm90_schedule(Bn, H, W, Cx, C, k, device) -> dict:
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 7)()
     with torch.cuda.device(device):
         err = _lib("conv_lstm_cell_sm90").conv_lstm_cell_sm90_schedule(
-            Bn, H, W, Cx, C, k, ctypes.addressof(out))
+            Bn, H, W, Cx, C, k, int(C % 8 != 0), ctypes.addressof(out))
     _check_err(err, "conv_lstm_cell_sm90_schedule")
-    return dict(zip(("tiles", "grid", "steps", "slots"), out))
+    return dict(zip(("tiles", "grid", "steps", "slots", "slot_floats",
+                     "macs", "tail"), out))
 
 
 def sm90_schedule(Bn, H, W, Cx, C, k, device=None) -> dict:
     """The wgmma/TMA kernel's schedule on `device`: output tiles, persistent
     blocks (clusters of two, one block an SM), k-steps summed over the
-    blocks (each a product of 128 x 256 x 64) and the workspace slots of
-    128 KB its partial sums take."""
+    blocks (most a product of 128 x 256 x 64; a tap's short step in the
+    tail layout 128 x 256 x 32), the workspace slots its partial sums take
+    and the float32 values of one, the multiply-adds its products do, and
+    whether the cell takes the tail layout (det's 260 or 258 channels, on
+    `sm90_weights`' packed copy: csrc/conv_lstm_cell_sm90_geom.h)."""
     dev = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     return dict(_sm90_schedule(Bn, H, W, Cx, C, k, index))
 
 
 def _launch_cell(fn_name, dims, x, h, c, w, b):
-    """fn_name: "conv_lstm_cell_sm90" for the wgmma/TMA kernel, else a
-    function of conv_lstm_cell.cu."""
+    """A function of conv_lstm_cell.cu on w (k, k, Cx + C, 4C). h' and c'
+    are allocated in h's layout."""
     Bn, H, W, Cx, C, k = dims
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
+    h_out, c_out = empty_nhwc_like(h), empty_nhwc_like(h)
+    lds = [pixel_stride(t) for t in (x, h, c, h_out)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        args = [x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
-                b.data_ptr(), h_out.data_ptr(), c_out.data_ptr()]
-        if fn_name == "conv_lstm_cell_sm90":
-            s = sm90_schedule(Bn, H, W, Cx, C, k, x.device)
-            # float32 partial sums of tiles cut between blocks; per tile an
-            # arrival and a done counter, zeroed
-            ws = torch.empty(s["slots"] * 128 * 256, device=x.device)
-            counters = torch.zeros(2 * s["tiles"], device=x.device,
-                                   dtype=torch.int32)
-            args += [ws.data_ptr(), counters.data_ptr()]
-            fn = _lib("conv_lstm_cell_sm90").conv_lstm_cell_sm90
-        else:
-            fn = getattr(_lib("conv_lstm_cell"), fn_name)
-        err = fn(*args, Bn, H, W, Cx, C, k, stream)
+        err = getattr(_lib("conv_lstm_cell"), fn_name)(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
+            b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+            Bn, H, W, Cx, C, k, *lds, stream)
     _check_err(err, fn_name)
     launches["conv_lstm_cell"] += 1
-    if fn_name == "conv_lstm_cell_sm90":
-        launches["conv_lstm_cell_sm90"] += 1
+    return h_out, c_out
+
+
+def launch_sm90(dims, x, h, c, wk, cw, b):
+    """The wgmma/TMA kernel on weights wk in its layout, gate q's columns at
+    q cw .. q cw + C: w itself (cw = C), or, with cw > C, a copy whose
+    gates are padded to cw columns and followed by the narrow tail's block
+    (`sm90_weights`). h' and c' are allocated in h's layout."""
+    Bn, H, W, Cx, C, k = dims
+    h_out, c_out = empty_nhwc_like(h), empty_nhwc_like(h)
+    lds = [pixel_stride(t) for t in (x, h, c, h_out)]
+    s = sm90_schedule(Bn, H, W, Cx, C, k, x.device)
+    # float32 partial sums of tiles cut between blocks; per tile an
+    # arrival and a done counter, zeroed
+    ws = torch.empty(s["slots"] * s["slot_floats"], device=x.device)
+    counters = torch.zeros(2 * s["tiles"], device=x.device, dtype=torch.int32)
+    tcol = 4 * cw if cw != C else -1  # where the tail block starts
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib("conv_lstm_cell_sm90").conv_lstm_cell_sm90(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), wk.data_ptr(),
+            b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), Bn, H, W, Cx, C, k, *lds, cw, tcol, stream)
+    _check_err(err, "conv_lstm_cell_sm90")
+    launches["conv_lstm_cell"] += 1
+    launches["conv_lstm_cell_sm90"] += 1
     return h_out, c_out
 
 
 def conv_lstm_cell(x, h, c, w, b):
-    """One ConvLSTM cell (gate order i, f, o, g). Returns (h_new, c_new)."""
+    """One ConvLSTM cell (gate order i, f, o, g), w (k, k, Cx + C, 4C).
+    Returns (h_new, c_new), both in h's layout (a view of a padded buffer
+    where h is one)."""
     dims = _check_cell(x, h, c, w, b)
     if x.device.type == "cpu":
-        return conv_lstm_cell_plain(x, h, c, w, b)
+        h_new, c_new = conv_lstm_cell_plain(x, h, c, w, b)
+        if h.is_contiguous():
+            return h_new, c_new
+        return (empty_nhwc_like(h).copy_(h_new),
+                empty_nhwc_like(h).copy_(c_new))
     _check_cuda_cell(x, h, c, w, b)
-    fn_name = ("conv_lstm_cell_sm90" if takes_sm90(x, h, c, w)
-               else _CELL_FN[x.dtype])
-    return _launch_cell(fn_name, dims, x, h, c, w, b)
+    if takes_sm90(x, h, c, w):
+        return launch_sm90(dims, x, h, c, *sm90_weights(w, dims[4]), b)
+    return _launch_cell(_CELL_FN[x.dtype], dims, x, h, c, w, b)
 
 
 def conv_lstm_cell_wmma(x, h, c, w, b):
     """The WMMA kernel of csrc/conv_lstm_cell.cu on any bf16 CUDA cell.
-    `conv_lstm_cell` sends it only the shapes TMA cannot describe; this
-    entry point times it beside the wgmma kernel at the planner's shapes."""
+    `conv_lstm_cell` sends it only the cells TMA cannot describe; this
+    entry point times it beside the wgmma kernel on the same inputs."""
     dims = _check_cell(x, h, c, w, b)
     _check_cuda_cell(x, h, c, w, b)
     _check(x.dtype == torch.bfloat16, "the WMMA kernel takes bfloat16")

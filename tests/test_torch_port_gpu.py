@@ -94,6 +94,17 @@ def _cell_args(dev, dtype, B, H, W, Cx, C, k, seed=0):
     return [t.to(dev, dtype) for t in (x, h, c, w)] + [b.to(dev)]
 
 
+def _det_layout(x, h, c, w, b):
+    """det's layout of a cell: x, h, c as views of buffers padded to a
+    multiple of 8 channels with NaN in the pad lanes."""
+    def padded(t):
+        buf = torch.full((*t.shape[:3], kernels.round_up(t.shape[-1])),
+                         float("nan"), dtype=t.dtype, device=t.device)
+        return buf[..., :t.shape[-1]].copy_(t)
+
+    return [padded(x), padded(h), padded(c), w, b]
+
+
 def _assert_cell_close(got, want, dtype, tol):
     for gv, wv in zip(got, want):
         assert gv.dtype == dtype
@@ -272,14 +283,16 @@ SERVE_SMALL = dict(model="svg", g_dim=16, z_dim=4, action_dim=5, robot_dim=5,
                    action_candidates=6, topk=2, cem_init_std=0.015)
 
 
+@pytest.mark.parametrize("channels", [256, 260])
 @pytest.mark.parametrize("k", [5, 3])
-def test_gpu_cell_result_depends_on_its_row_alone(cuda, k):
-    """The wgmma/TMA cell at the planner's widths: 50 launches of identical
-    inputs give identical bits at B = 16, 100, 200 and 400, and rows of a
-    B = 100 launch equal the same rows at offsets 0 and 100 of B = 200
-    launches, at 0, 100, 200 and 300 of B = 400 launches, and the first 16
-    a B = 16 launch."""
-    cell_invariance(cuda, ks=(k,))
+def test_gpu_cell_result_depends_on_its_row_alone(cuda, k, channels):
+    """The wgmma/TMA cell at the planner's widths and at det's (260: padded
+    views with NaN pad lanes, the tail layout): 50 launches
+    of identical inputs give identical bits at B = 16, 100, 200 and 400,
+    and rows of a B = 100 launch equal the same rows at offsets 0 and 100
+    of B = 200 launches, at 0, 100, 200 and 300 of B = 400 launches, and
+    the first 16 a B = 16 launch."""
+    cell_invariance(cuda, ks=(k,), channels=channels)
 
 
 def test_gpu_small_cell_kernels_depend_on_their_row_alone(cuda):
@@ -315,20 +328,75 @@ def test_gpu_served_plans_equal_local(cuda):
 
 
 # ---------------------------------------------------------------- variants
-@pytest.mark.parametrize("B", [100, 200, 400])
+@pytest.mark.parametrize("B", [16, 100, 200, 400])
 @pytest.mark.parametrize("k", [5, 3])
-def test_gpu_wmma_cell_matches_plain_at_det_channels(cuda, k, B):
-    """det's plan cells (6x8, Cx = C = 260: channel counts that are not
-    multiples of 8 or 16; B = 100 a request, 200 and 400 for 2 and 4
-    planned together) take the WMMA kernel, one launch and none through
-    sm90, and equal its plain version to one bf16 rounding step."""
-    args = _cell_args(cuda, torch.bfloat16, B, 6, 8, 260, 260, k, seed=k)
+def test_gpu_sm90_cell_matches_plain_at_det_channels(cuda, k, B):
+    """det's cells (6x8, Cx = C = 260; B = 100 a request, 200 and 400 for
+    2 and 4 planned together, 16 the eval epoch's batch) in det's layout,
+    NaN in the pad lanes of x, h and c, take the wgmma/TMA kernel, one
+    launch, and equal its plain version to one bf16 rounding step with
+    finite outputs, returned in h's padded layout."""
+    raw = _cell_args(cuda, torch.bfloat16, B, 6, 8, 260, 260, k, seed=k)
+    args = _det_layout(*raw)
     before = dict(kernels.launches)
     got = kernels.conv_lstm_cell(*args)
     assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
-    assert kernels.launches["conv_lstm_cell_sm90"] == before["conv_lstm_cell_sm90"]
-    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*args),
+    assert (kernels.launches["conv_lstm_cell_sm90"]
+            == before["conv_lstm_cell_sm90"] + 1)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert got[0].stride() == args[1].stride()
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*raw),
                        torch.bfloat16, 1e-2)
+
+
+@pytest.mark.parametrize("k", [5, 3])
+def test_gpu_wmma_cell_matches_plain_at_det_channels(cuda, k):
+    """The WMMA kernel called by name at det's channels on contiguous
+    tensors (520-byte rows: its element-wise loads), and the routing of a
+    contiguous 260-channel cell, and of one on a 262-channel pixel stride,
+    to it: one launch, none through sm90, within one bf16 rounding step."""
+    args = _cell_args(cuda, torch.bfloat16, 100, 6, 8, 260, 260, k, seed=k)
+    want = kernels.conv_lstm_cell_plain(*args)
+    _assert_cell_close(kernels.conv_lstm_cell_wmma(*args), want,
+                       torch.bfloat16, 1e-2)
+    views = [torch.full((100, 6, 8, 262), float("nan"), dtype=torch.bfloat16,
+                        device=cuda)[..., :260].copy_(t) for t in args[:3]]
+    for ins in (args[:3], views):
+        before = dict(kernels.launches)
+        got = kernels.conv_lstm_cell(*ins, *args[3:])
+        assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
+        assert (kernels.launches["conv_lstm_cell_sm90"]
+                == before["conv_lstm_cell_sm90"])
+        _assert_cell_close(got, want, torch.bfloat16, 1e-2)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("dtype,C,B,k", [
+    (torch.float32, 20, 6, 3), (torch.float32, 260, 100, 5),
+    (torch.float32, 260, 16, 3), (torch.bfloat16, 260, 100, 5),
+    (torch.bfloat16, 258, 16, 3)])
+def test_gpu_cell_kernels_match_plain_at_det_channels(cuda, monkeypatch,
+                                                      dtype, C, B, k, padded):
+    """det's channel counts (Cx = C: 20 at the small config, 260 at the
+    canonical, 258 without state maps), contiguous or in det's layout
+    (NaN pad lanes), on the parameters' (k, k, 2C, 4C) weights: float32
+    through the CUDA-core kernel to 1e-4 (TF32 off on the plain side), bf16
+    contiguous through the WMMA kernel and padded through the wgmma/TMA
+    kernel (on its packed copy) to one bf16 rounding step; finite outputs
+    in h's layout."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    raw = _cell_args(cuda, dtype, B, 6, 8, C, C, k, seed=C + k)
+    args = _det_layout(*raw) if padded else raw
+    before = dict(kernels.launches)
+    got = kernels.conv_lstm_cell(*args)
+    sm90 = dtype == torch.bfloat16 and padded
+    assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
+    assert (kernels.launches["conv_lstm_cell_sm90"]
+            == before["conv_lstm_cell_sm90"] + sm90)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert got[0].stride() == args[1].stride()
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*raw), dtype,
+                       1e-4 if dtype == torch.float32 else 1e-2)
 
 
 def _tf32_off(monkeypatch):
@@ -348,7 +416,8 @@ def test_gpu_variant_plan_matches_cpu(cuda, monkeypatch, name):
 @pytest.mark.parametrize("name", sorted(VARIANTS))
 def test_gpu_variant_costs_match_cpu(cuda, monkeypatch, name):
     """Small float32 rollout costs of fixed candidates equal the CPU's to
-    1e-4, the blur cost's within one 1/255 step a pixel on another step."""
+    1e-4, the blur cost's within one 1/255 step a pixel on another step,
+    and the cells' states on the way to 1e-4 of their largest value."""
     _tf32_off(monkeypatch)
     small_cost_parity(name, cuda)
 
@@ -365,7 +434,7 @@ def test_gpu_variant_train_step_matches_cpu(cuda, monkeypatch, name):
 @pytest.mark.parametrize("name", sorted(VARIANTS))
 def test_gpu_variant_batched_plans_equal_single(cuda, name):
     """Each variant at the canonical config (bf16; det's cells through the
-    WMMA kernel at B = R x 100, GroupNorms over R x 100 rows, heatmaps
+    wgmma/TMA kernel at B = R x 100, GroupNorms over R x 100 rows, heatmaps
     rendered for them, blur costs per request): batched plans of 2 and 4
     requests equal their single plans bit for bit."""
     cfg = Config(**dict(CANONICAL, **VARIANTS[name]))

@@ -186,21 +186,119 @@ def test_cell_wrapper_rejects_bad_weights():
     with pytest.raises(ValueError):  # even kernel size
         kernels.conv_lstm_cell(x, h, h, torch.zeros(2, 2, 12, 32),
                                torch.zeros(32))
+    # the wgmma/TMA kernel's gate-packed copy is the wrapper's to make
+    # (kernels.sm90_weights); every path takes (k, k, Cx + C, 4C)
+    x = torch.zeros(1, 6, 8, 260)
+    with pytest.raises(ValueError):
+        kernels.conv_lstm_cell(
+            x, x, x, kernels.pack_gate_weights(torch.zeros(3, 3, 520, 1040), 260),
+            torch.zeros(1040))
 
 
-@pytest.mark.parametrize("dtype,cx,ch,offset,want", [
-    (torch.bfloat16, 256, 256, 0, True),   # the planner's cells
-    (torch.bfloat16, 24, 40, 0, True),     # a partial 64-channel tile
-    (torch.bfloat16, 13, 20, 0, False),    # rows not a multiple of 16 bytes
-    (torch.bfloat16, 16, 16, 1, False),    # x not 16-byte aligned
-    (torch.float32, 256, 256, 0, False),   # float32 keeps the CUDA-core kernel
+@pytest.mark.parametrize("dtype,cx,ch,offset,want,ld", [
+    (torch.bfloat16, 256, 256, 0, True, None),  # the planner's cells
+    (torch.bfloat16, 24, 40, 0, True, None),    # a partial 64-channel tile
+    (torch.bfloat16, 13, 20, 0, False, None),   # rows not a multiple of 16 bytes
+    (torch.bfloat16, 16, 16, 1, False, None),   # x not 16-byte aligned
+    (torch.float32, 256, 256, 0, False, None),  # float32 keeps the CUDA-core kernel
+    (torch.bfloat16, 260, 260, 0, True, 264),   # det: padded views
+    (torch.bfloat16, 258, 258, 0, True, 264),   # det without robot state
+    (torch.bfloat16, 260, 260, 0, False, None), # contiguous 260: 520-byte rows
+    (torch.float32, 260, 260, 0, False, 264),   # float32 det: the CUDA-core kernel
+    (torch.bfloat16, 13, 13, 0, False, 16),     # an odd channel count
+    (torch.bfloat16, 260, 260, 0, False, 262),  # a pixel stride of 262
 ])
-def test_cell_kernel_choice(dtype, cx, ch, offset, want):
-    """Which CUDA kernel a cell takes depends only on dtype, channel counts
-    and alignment. The rule is plain Python, so it is checked here on CPU
-    tensors; the launches are checked on the card."""
-    x = torch.zeros(2 * 6 * 8 * cx + offset, dtype=dtype)[offset:].view(
-        2, 6, 8, cx)
-    h = torch.zeros(2, 6, 8, ch, dtype=dtype)
+def test_cell_kernel_choice(dtype, cx, ch, offset, want, ld):
+    """Which CUDA kernel a cell takes depends only on dtype, channel counts,
+    strides and alignment: x, h and c contiguous or views of buffers of `ld`
+    channels a pixel. The rule is plain Python, so it is checked here on
+    CPU tensors; the launches are checked on the card."""
+    def make(n):
+        if ld is None:
+            return torch.zeros(2 * 6 * 8 * n + offset, dtype=dtype)[
+                offset:].view(2, 6, 8, n)
+        return torch.zeros(2, 6, 8, ld, dtype=dtype)[..., :n]
+
+    x, h, c = make(cx), make(ch), make(ch)
     w = torch.zeros(3, 3, cx + ch, 4 * ch, dtype=dtype)
-    assert kernels.takes_sm90(x, h, h, w) is want
+    assert kernels.takes_sm90(x, h, c, w) is want
+
+
+@pytest.mark.parametrize("C,ld", [(260, 264), (258, 264), (20, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cell_plain_ignores_pad_lanes(C, ld, dtype):
+    """The cell on views of padded buffers whose pad lanes hold NaN equals
+    the cell on contiguous copies bit for bit, and returns h' and c' in h's
+    padded layout. One
+    torch thread: with several, the first float32 convolution of a shape
+    on the CPU now and then sums in another order (3e-5 apart)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _plain_ignores_pad_lanes(C, ld, dtype)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _plain_ignores_pad_lanes(C, ld, dtype):
+    g = torch.Generator().manual_seed(C)
+    x, h, c = (torch.randn(2, 6, 8, C, generator=g).to(dtype)
+               for _ in range(3))
+    w = (torch.randn(3, 3, 2 * C, 4 * C, generator=g) * 0.05).to(dtype)
+    b = torch.randn(4 * C, generator=g) * 0.1
+
+    def padded(t):
+        return torch.full((2, 6, 8, ld), float("nan"), dtype=dtype)[
+            ..., :C].copy_(t)
+
+    got = kernels.conv_lstm_cell(padded(x), padded(h), padded(c), w, b)
+    want = kernels.conv_lstm_cell(x, h, c, w, b)
+    for gv, wv in zip(got, want):
+        assert kernels.pixel_stride(gv) == ld
+        assert torch.equal(gv, wv)
+
+
+def test_pack_gate_weights_round_trip():
+    """Packed weights: each gate's columns on a multiple of 64, zeros past
+    C, then the narrow tail's block (channels 256-263 of each gate, zeros
+    past 260). 256 channels stay as they are."""
+    w = torch.randn(3, 3, 520, 1040)
+    p = kernels.pack_gate_weights(w, 260)
+    assert p.shape == (3, 3, 520, 4 * 320 + kernels.TAIL_COLUMNS)
+    gates = w.reshape(3, 3, 520, 4, 260)
+    for q in range(4):
+        assert torch.equal(p[..., q * 320:q * 320 + 260], gates[..., q, :])
+        assert not p[..., q * 320 + 260:(q + 1) * 320].any()
+        tail = p[..., 1280 + 8 * q:1280 + 8 * q + 8]
+        assert torch.equal(tail[..., :4], gates[..., q, 256:260])
+        assert not tail[..., 4:].any()
+    w256 = torch.randn(3, 3, 512, 1024)
+    assert kernels.pack_gate_weights(w256, 256) is w256
+
+
+def test_sm90_weights_follow_the_parameter():
+    """The wgmma/TMA kernel's gate-packed copy of a cell's weights (20
+    hidden channels) is made once per version of the parameter: the same
+    tensor while it is unchanged, also under inference_mode (and then not
+    an inference tensor), a new one after an in-place update (an optimizer
+    step, load_state_dict); no copy for 16 channels, and none in the
+    module's state."""
+    from robot_aware_control_tpu_torch.ops.lstm import ConvLSTMCell
+
+    cell = ConvLSTMCell(8, 20, 3)
+    torch.nn.init.normal_(cell.weight)
+    with torch.inference_mode():
+        packed, cw = kernels.sm90_weights(cell.weight, 20)
+    assert not packed.is_inference()
+    assert cw == 64 and packed.shape == (3, 3, 28, 4 * 64 + kernels.TAIL_COLUMNS)
+    assert kernels.sm90_weights(cell.weight, 20)[0] is packed
+    assert torch.equal(packed, kernels.pack_gate_weights(cell.weight, 20))
+    with torch.no_grad():
+        cell.weight.mul_(2.0)
+    again = kernels.sm90_weights(cell.weight, 20)[0]
+    assert again is not packed
+    assert torch.equal(again, kernels.pack_gate_weights(cell.weight, 20))
+    assert set(cell.state_dict()) == {"weight", "bias"}
+    plain = ConvLSTMCell(8, 16, 3)
+    w, cw = kernels.sm90_weights(plain.weight, 16)
+    assert w is plain.weight and cw == 16

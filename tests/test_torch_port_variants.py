@@ -37,6 +37,7 @@ from robot_aware_control_tpu_torch.data import heatmaps as theatmaps
 from robot_aware_control_tpu_torch.data.norm import LOCOBOT_HIGH, LOCOBOT_LOW, normalize
 from robot_aware_control_tpu_torch.models import det as tdet
 from robot_aware_control_tpu_torch.models import svg as tsvg
+from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.ops.lstm import NormConvLSTMCell
 from robot_aware_control_tpu_torch.planning import cost as tcost
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
@@ -58,10 +59,14 @@ from torch_train_cases import (
 )
 from torch_train_small import GRAD_TOL_DEVICES, GRAD_TOL_JAX, detached_group_statistics
 from torch_variant_cases import (
+    CELL_RTOL,
+    COST_RTOL,
     FLIP_STEP,
     TRAIN_VARIANTS,
     blur_flip_allowance,
     blur_floor,
+    cell_state_err,
+    small_rollout,
     start_goal,
 )
 
@@ -352,6 +357,77 @@ def test_variant_rollout_matches_jax(rng, variant):
         assert flips <= 1e-3 * np.asarray(jobs).size
     err = np.abs(got.double().numpy() - want)
     assert np.all(err <= 1e-4 * np.abs(want) + allow), (err, allow)
+
+
+@pytest.mark.parametrize("robot_state", [True, False])
+def test_det_steps_with_padded_carries_match_jax(rng, robot_state):
+    """Three det steps at inference from init_carry's carries, each cell
+    input built into a padded buffer: x_pred and the carries equal the JAX
+    model's to STACK_TOL, and every carry, before and after each step, is a
+    (B, 3, 4, C) view of a buffer of C rounded up to 8 channels a pixel (C =
+    16 + 2 + 2 with the state maps, 18 without)."""
+    kw = dict(STEP_KW, model="det", model_use_robot_state=robot_state)
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    params, bn = _jax_trees(jcfg)
+    model = _port_model(cfg, params, bn, train=False)
+    B, C = 3, cfg.g_dim + (4 if robot_state else 2)
+    jcarry = jdet.init_carry(jcfg, B)
+    carry = tdet.init_carry(cfg, B, torch.float32, "cpu")
+
+    def states(frame):
+        return [t for cell in frame for t in cell]
+
+    for _ in range(3):
+        for t in states(carry.frame):
+            assert t.shape == (B, 3, 4, C)
+            assert kernels.pixel_stride(t) == kernels.round_up(C) > C
+        img = rng.rand(B, 24, 32, 3).astype(np.float32)
+        mask = (rng.rand(B, 24, 32, 2) > 0.7).astype(np.float32)  # and the next
+        robot = rng.randn(B, 5).astype(np.float32)
+        action = rng.randn(B, 5).astype(np.float32)
+        jout, jcarry, _ = jdet.step(jcfg, params, bn, jcarry, jnp.asarray(img),
+                                    jnp.asarray(mask), jnp.asarray(robot),
+                                    jnp.asarray(action))
+        with torch.no_grad():
+            out, carry = model(carry, torch.tensor(img), torch.tensor(mask),
+                               torch.tensor(robot), torch.tensor(action))
+        np.testing.assert_allclose(out["x_pred"].numpy(),
+                                   np.asarray(jout["x_pred"]), **STACK_TOL)
+        for got, want in zip(states(carry.frame), states(jcarry.frame)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       **STACK_TOL)
+
+
+_plain_cell = kernels.conv_lstm_cell_plain
+
+
+def _gate_rows_misread(x, h, c, w, b):
+    """The plain cell on weights read the way a kernel that takes them at a
+    row stride of 4 Cp reads `pack_gate_weights`' copy, whose rows hold
+    4 Cp + 32 columns: every row after the first 32 more columns off."""
+    C = h.shape[-1]
+    k, _, cin, _ = w.shape
+    cp = kernels.round_up(C, 64)
+    flat = kernels.pack_gate_weights(w, C).reshape(-1)
+    rows = flat[:k * k * cin * 4 * cp].reshape(k, k, cin, 4, cp)
+    return _plain_cell(x, h, c, rows[..., :C].reshape(k, k, cin, 4 * C), b)
+
+
+def test_cost_parity_rejects_a_planted_cell_weight_fault(monkeypatch):
+    """The small det rollout of torch_variant_cases (the GPU-vs-CPU cost
+    parity) with det's cell reading its gate weights 32 columns a row off:
+    its costs stay within COST_RTOL of the right rollout's (at the
+    reference's N(0, 0.02) weights the prediction hardly depends on the
+    cell), so the check also holds the cells' states, which move by more
+    than their own size."""
+    want_cost, _, want_cells = small_rollout("det", "cpu")
+    monkeypatch.setattr(kernels, "conv_lstm_cell_plain", _gate_rows_misread)
+    got_cost, _, got_cells = small_rollout("det", "cpu")
+    assert np.all(np.abs(got_cost - want_cost) <= COST_RTOL * np.abs(want_cost))
+    assert cell_state_err(got_cells, want_cells) > 1000 * CELL_RTOL
+    monkeypatch.undo()
+    again = small_rollout("det", "cpu")[2]
+    assert cell_state_err(again, want_cells) == 0.0
 
 
 @pytest.mark.parametrize("variant", sorted(PLAN_VARIANTS))

@@ -24,7 +24,7 @@ from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 
 # the planner's cells: B = candidates x requests (1, 2, 4) and the trainer's
-# eval batch, 6x8 maps of 256 + 256 channels, k = 5 and 3
+# eval batch, 6x8 maps of 256 + 256 channels (det's: 260 + 260), k = 5 and 3
 CELL_BATCHES = (16, 100, 200, 400)
 CELL_KS = (5, 3)
 # where the rows of one request's B = 100 launch sit in a batched launch
@@ -39,9 +39,18 @@ def cell_weights(k, dev, dtype=torch.bfloat16, Cx=256, C=256, seed=0):
 
 
 def cell_rows(B, dev, dtype=torch.bfloat16, H=6, W=8, Cx=256, C=256, seed=1):
+    """x, h, c of B rows; where a channel count is not a multiple of 8, as
+    det holds them: views of buffers padded to one, NaN in the pad lanes."""
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn(B, H, W, n, generator=g).to(dev, dtype)
-            for n in (Cx, C, C)]
+    out = []
+    for n in (Cx, C, C):
+        t = torch.randn(B, H, W, n, generator=g).to(dev, dtype)
+        if n % 8:
+            buf = torch.full((B, H, W, kernels.round_up(n)), float("nan"),
+                             dtype=dtype, device=dev)
+            t = buf[..., :n].copy_(t)
+        out.append(t)
+    return out
 
 
 def _same(a, b):
@@ -49,20 +58,22 @@ def _same(a, b):
 
 
 def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
-                    fn=None):
+                    fn=None, channels=256):
     """For each k: `repeats` launches of identical inputs at each B give
     identical bits; the rows of a B = 100 launch equal the same rows placed
     at offsets 0 and 100 of B = 200 launches and 0, 100, 200 and 300 of
     B = 400 launches whose other rows are different; and the first 16 rows
-    equal a B = 16 launch of them. Raises
+    equal a B = 16 launch of them; Cx = C = `channels` (det's 260: padded
+    views, the layout det gives its cells). Raises
     on the first difference. `fn` is the cell wrapper (default
     kernels.conv_lstm_cell, which must take the wgmma/TMA kernel at these
     shapes). Returns {"k=5": {...}, ...} with what was compared."""
     fn = fn or kernels.conv_lstm_cell
     out = {}
+    C = channels
     for k in ks:
-        w, b = cell_weights(k, dev)
-        rows = cell_rows(max(batches), dev, seed=k)
+        w, b = cell_weights(k, dev, Cx=C, C=C)
+        rows = cell_rows(max(batches), dev, Cx=C, C=C, seed=k)
         if fn is kernels.conv_lstm_cell and not kernels.takes_sm90(*rows, w):
             raise AssertionError("the planner's cell does not take sm90")
         ref = {}
@@ -74,11 +85,11 @@ def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
                     raise AssertionError(f"k={k} B={B}: launch {i + 2} of "
                                          "identical inputs differs")
             ref[B] = first
-        base = cell_rows(100, dev, seed=10 + k)
+        base = cell_rows(100, dev, Cx=C, C=C, seed=10 + k)
         want = fn(*base, w, b)
         for B, offsets in OFFSETS.items():
             for o in offsets:
-                big = cell_rows(B, dev, seed=20 + k + o + B)
+                big = cell_rows(B, dev, Cx=C, C=C, seed=20 + k + o + B)
                 for t, r in zip(big, base):
                     t[o:o + 100] = r
                 got = fn(*big, w, b)
@@ -91,6 +102,7 @@ def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
             raise AssertionError(f"k={k}: B = 16 differs from the same rows "
                                  "at B = 100")
         out[f"k={k}"] = dict(repeats=repeats, batches=list(batches),
+                             channels=C,
                              offsets={str(B): list(o)
                                       for B, o in OFFSETS.items()},
                              identical=True)

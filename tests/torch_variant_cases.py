@@ -9,8 +9,9 @@ chip_smoke.py and tests/test_torch_port_gpu.py:
   * `plan_launches`: the kernel launches one CEM plan of a variant makes;
   * `small_plan_parity`: a small float32 plan of a variant on the GPU
     against the same plan on the CPU, with injected action noise;
-  * `small_cost_parity`: the rollout costs of fixed candidates, GPU against
-    CPU; for the blur cost within `blur_flip_allowance`.
+  * `small_cost_parity`: the rollout costs of fixed candidates and the
+    cells' states on the way, GPU against CPU; for the blur cost within
+    `blur_flip_allowance`.
 
 The inpaint-blur cost floors 255 x the blur to whole steps, so two runs
 whose images differ in the last float32 bits may put a pixel on either side
@@ -30,6 +31,7 @@ import torch
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
+from robot_aware_control_tpu_torch.ops.lstm import ConvLSTMCell, NormConvLSTMCell
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.planning.cost import InpaintBlurCost, gaussian_blur
 from robot_aware_control_tpu_torch.planning.rollout import RolloutEngine, request_inputs
@@ -66,6 +68,8 @@ SMALL = dict(CANONICAL, g_dim=16, z_dim=4, compute_dtype="float32",
              sample_mean=True)
 PLAN_TOL = 1e-4
 COST_RTOL = 1e-4
+# the cells' h' and c' in a small rollout, relative to their largest |value|
+CELL_RTOL = 1e-4
 # the most one pixel's move by one 1/255 step changes (blurred image -
 # blurred goal)^2, both in [0, 1]
 FLIP_STEP = 2 / 255 + 1 / 255 ** 2
@@ -74,12 +78,16 @@ FLIP_STEP = 2 / 255 + 1 / 255 ** 2
 def plan_launches(cfg: Config) -> dict:
     """Kernel launches of one plan: per model step 2 cells in each of the
     prior and frame stacks (svg) or in the frame stack (det), none with
-    GroupNorm cells; bf16 cells of svg's 256 channels through the wgmma/TMA
-    kernel, det's 260 through the WMMA one; one mask render an iteration."""
+    GroupNorm cells; bf16 cells through the wgmma/TMA kernel: svg's of
+    g_dim channels where that is a multiple of 8, det's of any even count
+    (g_dim + 2 + 2 = 260 at the canonical config) in views of padded
+    buffers; one mask render an iteration."""
     steps = (cfg.horizon - 1) * cfg.opt_iter
     cells = 0 if cfg.lstm_group_norm else (2 if cfg.model == "det" else 4) * steps
-    sm90 = cells if (cfg.model == "svg" and cfg.compute_dtype == "bfloat16"
-                     and cfg.g_dim % 8 == 0) else 0
+    det_channels = cfg.g_dim + 2 + (2 if cfg.model_use_robot_state else 0)
+    sm90 = cells if cfg.compute_dtype == "bfloat16" and (
+        cfg.g_dim % 8 == 0 if cfg.model == "svg" else det_channels % 2 == 0
+    ) else 0
     return {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": sm90,
             "capsule_mask_render": cfg.opt_iter}
 
@@ -151,27 +159,61 @@ def blur_flip_allowance(cfg: Config, obs_a, obs_b, goal_flips=None):
     return (flips * FLIP_STEP / numel).numpy(), int(flips.sum())
 
 
-def small_cost_parity(name: str, dev="cuda"):
-    """The variant's small float32 rollout on `dev` against the CPU's for
-    fixed candidates (weights from seed 3, the prior's mean): the summed
-    costs to COST_RTOL relative, plus `blur_flip_allowance` for the blur
-    cost. Call with TF32 off. Returns (max |difference| / |cost|, pixels
-    on different blur steps); raises AssertionError past the bound."""
+def small_rollout(name: str, dev):
+    """The variant's small float32 rollout on `dev` for fixed candidates
+    (weights from seed 3, the prior's mean). Returns (costs (N,) float64,
+    predicted images, the float32 (h', c') of every ConvLSTM cell call in
+    call order), all on the CPU."""
     cfg = Config(**dict(SMALL, **VARIANTS[name]))
     start, goal = start_goal(np.random.RandomState(1))
     rng = np.random.RandomState(4)
     acts = np.zeros((8, cfg.horizon - 1, cfg.action_dim), np.float32)
     acts[..., :2] = rng.uniform(-0.05, 0.05, acts[..., :2].shape)
-    out = {}
-    for d in ("cpu", dev):
-        model = get_model(cfg).init(cfg, seed=3, device=d)
-        inputs = [None if a is None else torch.tensor(a, device=d)
-                  for a in request_inputs(cfg, start, goal, cfg.horizon - 1)]
-        cost, obs = RolloutEngine(cfg, device=d)(
-            model, *inputs[:3], torch.tensor(acts, device=d), *inputs[3:5],
-            torch.Generator(d).manual_seed(0), ret_obs=True)
-        out[str(d)] = cost.cpu().double().numpy(), obs.cpu()
-    (want, obs_cpu), (got, obs_dev) = out["cpu"], out[str(dev)]
+    model = get_model(cfg).init(cfg, seed=3, device=dev)
+    states = []
+
+    def keep(module, args, out):
+        states.append([t.float().cpu() for t in out[1]])
+
+    hooks = [m.register_forward_hook(keep) for m in model.modules()
+             if isinstance(m, (ConvLSTMCell, NormConvLSTMCell))]
+    inputs = [None if a is None else torch.tensor(a, device=dev)
+              for a in request_inputs(cfg, start, goal, cfg.horizon - 1)]
+    try:
+        cost, obs = RolloutEngine(cfg, device=dev)(
+            model, *inputs[:3], torch.tensor(acts, device=dev), *inputs[3:5],
+            torch.Generator(dev).manual_seed(0), ret_obs=True)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return cost.cpu().double().numpy(), obs.cpu(), states
+
+
+def cell_state_err(got, want) -> float:
+    """The largest max |got - want| / max |want| over the cell calls'
+    h' and c' of two rollouts (`small_rollout`)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} cell calls, expected {len(want)}")
+    return max((float((g - w).abs().max() / w.abs().max())
+                for gs, ws in zip(got, want) for g, w in zip(gs, ws)),
+               default=0.0)
+
+
+def small_cost_parity(name: str, dev="cuda"):
+    """The variant's small float32 rollout on `dev` against the CPU's
+    (`small_rollout`): the summed costs to COST_RTOL relative, plus
+    `blur_flip_allowance` for the blur cost, and every cell call's h' and
+    c' to CELL_RTOL of the CPU's largest |value| in it. The costs alone
+    cannot see a wrong cell: at the reference's N(0, 0.02) weights the
+    cells' states are about 1e-3 and the prediction hardly depends on them
+    (a planted weight-stride fault in det's cell moves the costs by 1e-7
+    relative, its states by their own size: test_torch_port_variants.py).
+    Call with TF32 off. Returns (max |difference| / |cost|, pixels on
+    different blur steps, `cell_state_err`); raises AssertionError past a
+    bound."""
+    cfg = Config(**dict(SMALL, **VARIANTS[name]))
+    want, obs_cpu, cells_cpu = small_rollout(name, "cpu")
+    got, obs_dev, cells_dev = small_rollout(name, dev)
     allow, flips = np.zeros_like(want), 0
     if cfg.reward_type == "inpaint-blur":
         allow, flips = blur_flip_allowance(cfg, obs_dev, obs_cpu)
@@ -181,4 +223,9 @@ def small_cost_parity(name: str, dev="cuda"):
             f"{name}: rollout costs on {dev} differ from the CPU's by {err} "
             f"(bound {COST_RTOL} x |cost| + {allow}, {flips} pixels on "
             "other blur steps)")
-    return float((err / np.abs(want)).max()), flips
+    cell_err = cell_state_err(cells_dev, cells_cpu)
+    if not cell_err <= CELL_RTOL:
+        raise AssertionError(
+            f"{name}: cell states on {dev} differ from the CPU's by "
+            f"{cell_err} of their largest value (tolerance {CELL_RTOL})")
+    return float((err / np.abs(want)).max()), flips, cell_err
