@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Ablations of the wgmma/TMA ConvLSTM-cell kernel on one NVIDIA GPU.
 
-    python3 cell_ablation.py [--det]
+    python3 cell_ablation.py [--det | --f32]
 
 Builds variants of robot_aware_control_tpu_torch/csrc/conv_lstm_cell_sm90.cu
 (with its header conv_lstm_cell_sm90_geom.h written into it), each made by a
@@ -42,6 +42,23 @@ and, on the source as it is, two other layouts of the same inputs:
                 lines;
   pixels_on_64  x, h and c at a pixel stride of 320 in place of 264.
 
+With --f32, variants of robot_aware_control_tpu_torch/csrc/conv_lstm_cell_f32.cu
+(with conv_lstm_cell_f32_geom.h written into it), timed in float32 at the
+planner's two cell shapes (B = 100) and at B = 16 and 400, k = 5, each at
+the tile shape the kernel's schedule picks:
+
+  kernel        the source as it is;
+  no_loads      no cp.async: products, barriers and update only (results
+                are wrong);
+  no_sync       no cp.async and no barrier: the products alone (results are
+                wrong);
+  regs_free     no register cap from __launch_bounds__;
+  ring_4x16     a ring of 4 stages of 16 channels in place of 2 of 32;
+  prefetch      each operand fragment read from shared memory one step
+                ahead of its products (A a quad of channels, B a gate);
+  narrow        64 x 16 tiles in place of 64 x 32 (the B = 16 and 100
+                launches take that shape).
+
 Prints per variant and shape the device time and its spread; for the
 variants that still compute the cell, that they agree with the plain version
 (1e-2 abs + rel, else it raises); for no_products the rates at which the
@@ -64,8 +81,6 @@ import torch
 import chip_smoke as smoke
 from robot_aware_control_tpu_torch.ops import kernels
 
-SRC = os.path.join(kernels._CSRC, "conv_lstm_cell_sm90.cu")
-HEADER = "conv_lstm_cell_sm90_geom.h"
 OUT = os.path.join(kernels.BUILD_DIR, "ablation")
 
 VARIANTS = {
@@ -103,8 +118,53 @@ DET_VARIANTS = {
                     (r"setmaxnreg\.inc\.sync\.aligned\.u32 232;",
                      "setmaxnreg.inc.sync.aligned.u32 224;")],
 }
+F32_NO_LOADS = [(r"copy_async<VEC>\((a_s|b_s) \+", r"if (0) copy_async<VEC>(\1 +")]
+F32_PREFETCH = """    float4 an[kTP];
+#pragma unroll
+    for (int i = 0; i < kTP; ++i) an[i] = *reinterpret_cast<const float4*>(a_s + i * TM * A_LD);
+    float4 bn = *reinterpret_cast<const float4*>(b_s);
+#pragma unroll
+    for (int kq = 0; kq < BK; kq += 4) {
+      float4 a[kTP];
+#pragma unroll
+      for (int i = 0; i < kTP; ++i) a[i] = an[i];
+      if (kq + 4 < BK) {
+#pragma unroll
+        for (int i = 0; i < kTP; ++i)
+          an[i] = *reinterpret_cast<const float4*>(a_s + i * TM * A_LD + kq + 4);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt) {
+          const float4 b = bn;
+          if (!(kq + q == BK - 1 && gt == 3))
+            bn = *reinterpret_cast<const float4*>(b_s + (kq + q + (gt == 3)) * B_LD + ((gt + 1) % 4) * NH);
+#pragma unroll
+          for (int i = 0; i < kTP; ++i)
+#pragma unroll
+            for (int j = 0; j < kTH; ++j)
+              acc[i][j][gt] = fmaf(lane(a[i], q), lane(b, j), acc[i][j][gt]);
+        }
+    }
+  }
+  wait_copies<0>();"""
+F32_VARIANTS = {
+    "kernel": [],
+    "no_loads": F32_NO_LOADS,
+    "no_sync": F32_NO_LOADS + [(r"    __syncthreads\(\);  ", "    //")],
+    "regs_free": [(r"__launch_bounds__\(shape_threads\(S\), 65536 / \(shape_threads\(S\) \* 128\)\)",
+                   "__launch_bounds__(shape_threads(S), 1)")],
+    "ring_4x16": [(r"BK = 32;", "BK = 16;"), (r"kStages = 2;", "kStages = 4;")],
+    "prefetch": [(r"#pragma unroll\n    for \(int kk = 0; kk < BK; kk \+= 4\) \{.*?\n    \}\n  \}\n"
+                  r"  wait_copies<0>\(\);", F32_PREFETCH)],
+    "narrow": [(r"shape_nh\(int\) \{ return 32; \}", "shape_nh(int s) { return s == 0 ? 32 : 16; }")],
+}
+F32_SHAPES = [(100, 6, 8, 256, 256, 5), (100, 6, 8, 256, 256, 3),
+              (16, 6, 8, 256, 256, 5), (400, 6, 8, 256, 256, 5)]
 EXACT = {"kernel", "precise_math", "bk32", "whole_tiles", "producer_56",
-         "gates_on_8", "pixels_on_64"}  # variants that still compute the cell
+         "gates_on_8", "pixels_on_64", "regs_free", "ring_4x16", "prefetch",
+         "narrow"}  # variants that still compute the cell
 
 
 def other_det_layouts(x, h, c, w, b) -> dict:
@@ -126,13 +186,16 @@ def other_det_layouts(x, h, c, w, b) -> dict:
             "pixels_on_64": lambda: kernels.conv_lstm_cell(*wide, w, b)}
 
 
-def build_variants(variants) -> dict:
-    """Writes and compiles every variant (nvcc in parallel); returns the
-    loaded libraries with their argument types set."""
+def build_variants(variants, lib="conv_lstm_cell_sm90") -> dict:
+    """Writes and compiles every variant of library `lib`'s source, its
+    header written into it (nvcc in parallel); returns the loaded
+    libraries with their argument types set."""
     os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(kernels._CSRC, HEADER)) as f:
+    source = os.path.join(kernels._CSRC, kernels.SOURCES[lib][0])
+    header_name = f"{lib}_geom.h"
+    with open(os.path.join(kernels._CSRC, header_name)) as f:
         header = f.read().replace("#pragma once", "")
-    src = open(SRC).read().replace(f'#include "{HEADER}"', header)
+    src = open(source).read().replace(f'#include "{header_name}"', header)
     procs = {}
     for name, subs in variants.items():
         text = src
@@ -140,22 +203,54 @@ def build_variants(variants) -> dict:
             text, n = re.subn(pattern, repl, text, flags=re.DOTALL)
             if n == 0:
                 raise RuntimeError(f"{name}: {pattern!r} matches nothing")
-        path = os.path.join(OUT, f"{name}.cu")
+        path = os.path.join(OUT, f"{lib}_{name}.cu")
         with open(path, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
             [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-o", os.path.join(OUT, f"{name}.so"), path],
+             "-Xptxas", "-v", "-o", os.path.join(OUT, f"{lib}_{name}.so"), path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, p in procs.items():
         out, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        libs[name] = kernels.bind("conv_lstm_cell_sm90",
-                                  ctypes.CDLL(os.path.join(OUT, f"{name}.so")))
+        spills = sorted({l.strip() for l in out.splitlines() if "spill stores" in l})
+        print(f"{lib} {name}: {'; '.join(spills)}")
+        libs[name] = kernels.bind(lib, ctypes.CDLL(os.path.join(OUT, f"{lib}_{name}.so")))
     return libs
+
+
+def f32_ablation(dev) -> None:
+    """--f32: the float32 kernel's variants (module docstring), in turns."""
+    torch.backends.cudnn.allow_tf32 = False
+    libs = build_variants(F32_VARIANTS, "conv_lstm_cell_f32")
+    for shape in F32_SHAPES:
+        args = smoke.cell_inputs(*shape, torch.float32, dev, 7)
+        want = kernels.conv_lstm_cell_plain(*args)
+        times = {name: [] for name in libs}
+        order = list(libs)
+        for names in (order, order[::-1]):
+            for name in names:
+                kernels._libs["conv_lstm_cell_f32"] = libs[name]
+                kernels._f32_schedule.cache_clear()
+                kernels.reset_launches()
+                got = kernels.conv_lstm_cell(*args)
+                if name in EXACT and not all(
+                        torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+                        for g, w in zip(got, want)):
+                    raise AssertionError(f"{name} disagrees with the plain version")
+                if kernels.launches["conv_lstm_cell_f32"] != 1:
+                    raise AssertionError(f"{name} did not take the float32 kernel")
+                times[name].append(smoke.cuda_ms(lambda: kernels.conv_lstm_cell(*args), n=5))
+        s = kernels.f32_schedule(*shape, dev)
+        print(f"float32 B={shape[0]} k={shape[-1]} (tile {s['bm']}x{s['nh']}, "
+              f"{s['tiles']} tiles, {2 * s['macs'] / 1e9:.1f} GFLOP multiplied):")
+        for name, ms in times.items():
+            extra = ", agrees with plain" if name in EXACT else ""
+            print(f"  {name:10s} {np.mean(ms):.4f} ms ({', '.join(f'{v:.4f}' for v in ms)})"
+                  f" = {2 * s['macs'] / np.mean(ms) / 1e9:.1f} TFLOP/s{extra}")
 
 
 def main() -> int:
@@ -168,6 +263,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
     print(card)
+    if "--f32" in sys.argv[1:]:
+        f32_ablation(dev)
+        return 0
     det = "--det" in sys.argv[1:]
     libs = build_variants(DET_VARIANTS if det else VARIANTS)
     for shape in smoke.DET_CELLS if det else smoke.PLANNER_CELLS:

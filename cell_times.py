@@ -1,42 +1,112 @@
 #!/usr/bin/env python3
 """Times the bf16 wgmma/TMA ConvLSTM-cell kernel of the checkout it runs in,
-on one NVIDIA GPU, at the shapes of the trainer's eval epoch, the planner
-and the plan server: B = 16, 100, 200 and 400 (6x8 maps, Cx = C = 256),
-k = 5 and 3.
+or with --f32 its float32 cell kernel, on one NVIDIA GPU, at the shapes of
+the trainer's eval epoch, the planner and the plan server: B = 16, 100,
+200 and 400 (6x8 maps, Cx = C = 256), k = 5 and 3.
 
-    python3 cell_times.py [--save FILE] [--bits FILE]
+    python3 cell_times.py [--f32 [--plan]] [--save FILE] [--bits FILE]
 
 The inputs (seed 7) and the CUDA-event timing are chip_smoke.py's, imported
 from the same checkout. A copy of this script run from the root of another
 checkout (say the parent commit, unpacked by `git archive`) times that
 checkout's kernel on the same inputs, so two versions of the kernel are
 compared in one call in turns: parent, change, change, parent. Each launch
-is first held to the plain version (1e-2 absolute and relative) and must
-take the wgmma/TMA kernel. `--save FILE` writes each shape's h' and c' to
-FILE (torch.save); `--bits FILE` fails unless they equal those in FILE bit
-for bit. Prints the card's name and power limit, then one JSON line
-{"card": ..., "cell_ms": {"B=16 k=5": [ms, ms, ms], ...}, "bits": ...}.
+is first held to the plain version (bf16: 1e-2 absolute and relative, and
+it must take the wgmma/TMA kernel; float32: 1e-4 with TF32 off, one cell
+launch counted in launches["conv_lstm_cell"], which every checkout has).
+`--plan` (with --f32) also runs the canonical planner with compute_dtype
+float32 (seed-0 weights): one warm-up and three timed plans of 160 cells
+and 10 masks each, then one plan under torch.profiler (device busy time,
+kernel time summed over streams, the cell kernel's share of that sum). `--save FILE` writes each shape's h' and c' to FILE
+(torch.save); `--bits FILE` fails unless they equal those in FILE bit for
+bit. Prints the card's name and power limit, then one JSON line
+{"card": ..., "dtype": ..., "cell_ms": {"B=16 k=5": [ms, ms, ms], ...},
+"bits": ..., "plan": ...}.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
 
 import chip_smoke as smoke
+from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.ops import kernels
+from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
+from torch_variant_cases import CANONICAL, start_goal  # tests/, on chip_smoke's path
 
 SHAPES = [(B, 6, 8, 256, 256, k) for B in (16, 100, 200, 400) for k in (5, 3)]
+
+
+def f32_plan(n_timed: int = 3) -> dict:
+    """The canonical planner in float32: latency of n_timed plans after a
+    warm-up (host clock, each ending in a sync), each launching 160 cells
+    and 10 masks, then one plan under torch.profiler: device busy time,
+    kernel time summed over streams, and the cell kernel's part of that sum
+    (kernels named cell_kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config(**dict(CANONICAL, compute_dtype="float32"))
+    policy = CEMPolicy(cfg, svg.init(cfg, seed=0, device="cuda"))
+    start, goal = start_goal(np.random.RandomState(0))
+    want = {"conv_lstm_cell": 4 * (cfg.horizon - 1) * cfg.opt_iter,
+            "capsule_mask_render": cfg.opt_iter}
+    seconds = []
+    for i in range(n_timed + 1):
+        before = dict(kernels.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = policy.get_action(start, goal, ep_num=1, step=i)
+        torch.cuda.synchronize()
+        if i:
+            seconds.append(time.perf_counter() - t0)
+        got = {n: kernels.launches[n] - before[n] for n in want}
+        if got != want or plan.shape != (4, 2) or not np.all(np.isfinite(plan)):
+            raise AssertionError(f"float32 plan {i}: launches {got}, plan {plan}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        policy.get_action(start, goal, ep_num=2, step=0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    # busy: the union of the device activities' intervals (cuDNN's FFT
+    # convolutions run kernels on other streams, which overlap)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    busy /= 1e3
+    summed = sum(ms for _, ms, _ in rows)
+    cell = sum(ms for key, ms, _ in rows if "cell_kernel" in key)
+    cell_n = sum(n for key, _, n in rows if "cell_kernel" in key)
+    return dict(latency_s=statistics.median(seconds), latency_runs=seconds,
+                launches_per_plan=want, profiled_wall_ms=wall, busy_ms=busy,
+                busy_share=busy / wall if busy else None, kernel_ms=summed,
+                cell_ms=cell, cell_launches=cell_n,
+                cell_share=cell / summed if summed else None)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--save", help="write the outputs to this file")
     ap.add_argument("--bits", help="compare the outputs with this file")
+    ap.add_argument("--f32", action="store_true",
+                    help="the float32 cell kernel in place of the bf16 one")
+    ap.add_argument("--plan", action="store_true",
+                    help="with --f32: the canonical planner in float32 too")
     args_ = ap.parse_args()
     if not torch.cuda.is_available():
         print("cell_times: no CUDA device is available", file=sys.stderr)
@@ -47,33 +117,41 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
     print(card)
+    if args_.f32:  # the plain side in full float32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dtype, bits_as = ((torch.float32, torch.int32) if args_.f32
+                      else (torch.bfloat16, torch.int16))
+    counter = "conv_lstm_cell" if args_.f32 else "conv_lstm_cell_sm90"
+    tol = 1e-4 if args_.f32 else 1e-2
     times, outputs = {}, {}
     for shape in SHAPES:
         key = f"B={shape[0]} k={shape[-1]}"
-        args = smoke.cell_inputs(*shape, torch.bfloat16, dev, 7)
-        before = kernels.launches["conv_lstm_cell_sm90"]
+        args = smoke.cell_inputs(*shape, dtype, dev, 7)
+        before = kernels.launches[counter]
         got = kernels.conv_lstm_cell(*args)
-        if kernels.launches["conv_lstm_cell_sm90"] != before + 1:
-            raise AssertionError(f"{shape} does not take the wgmma/TMA kernel")
+        if kernels.launches[counter] != before + 1:
+            raise AssertionError(f"{shape}: no launch counted in {counter}")
         for g, w in zip(got, kernels.conv_lstm_cell_plain(*args)):
-            torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
-                                       atol=1e-2)
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
         outputs[key] = [t.cpu() for t in got]
         run = lambda: kernels.conv_lstm_cell(*args)
-        times[key] = [smoke.cuda_ms(run) for _ in range(3)]
-    bits = None
+        times[key] = [smoke.cuda_ms(run, n=5 if args_.f32 else 20)
+                      for _ in range(3)]
+    result = {"card": card, "dtype": str(dtype), "cell_ms": times, "bits": None,
+              "plan": f32_plan() if args_.f32 and args_.plan else None}
     if args_.bits:
         want = torch.load(args_.bits)
-        differ = {key: [int((a.view(torch.int16) != b.view(torch.int16)).sum())
+        differ = {key: [int((a.view(bits_as) != b.view(bits_as)).sum())
                         for a, b in zip(outputs[key], want[key])]
                   for key in outputs}
-        bits = {"compared_with": args_.bits, "elements_differ": differ}
+        result["bits"] = {"compared_with": args_.bits, "elements_differ": differ}
         if any(v for d in differ.values() for v in d):
-            print(json.dumps({"card": card, "cell_ms": times, "bits": bits}))
+            print(json.dumps(result))
             raise AssertionError(f"outputs differ from {args_.bits}: {differ}")
     if args_.save:
         torch.save(outputs, args_.save)
-    print(json.dumps({"card": card, "cell_ms": times, "bits": bits}))
+    print(json.dumps(result))
     return 0
 
 

@@ -20,9 +20,9 @@ Phases, each of which raises on failure:
                 trainer's eval shapes (B=16, the same otherwise) and those
                 of 2 and 4 requests planned together (B=200, 400): in bf16
                 the wgmma/TMA kernel both take and the WMMA kernel it
-                replaced, and the float32 kernel; then small odd shapes,
-                and a bf16 cell of 260 channels on a 262-channel pixel
-                stride (the WMMA kernel reads it in place);
+                replaced, and the float32 kernel (csrc/conv_lstm_cell_f32.cu);
+                then small odd shapes, and a bf16 cell of 260 channels on a
+                262-channel pixel stride (the WMMA kernel reads it in place);
   5. parity     a small float32 CEM plan on the GPU (kernels) equals the
                 same plan on the CPU (plain versions) for injected noise;
   6. plan       the canonical planner of bench.py (svg, g_dim 256, z_dim 64,
@@ -30,9 +30,14 @@ Phases, each of which raises on failure:
                 weights initialised from a seed: one warm-up plan and three
                 timed plans, each of which must launch the cell 160 times,
                 every time through the wgmma/TMA kernel, and the mask
-                kernel 10 times;
-  7. profile    one more canonical plan under torch.profiler: device time
-                by kernel and the share of the plan the device was busy;
+                kernel 10 times; then the same config with compute_dtype
+                float32 (seed-0 weights, TF32 off): one warm-up and three
+                timed plans, each finite and shaped (4, 2), each launching
+                the cell 160 times, every time through the float32 kernel
+                and never through sm90, and the mask kernel 10 times;
+  7. profile    one more canonical plan under torch.profiler, bf16 and
+                float32: device time by kernel, the share of the plan the
+                device was busy, and (float32) the cell kernel's share;
   8. train      SVG training (training/step.py, training/trainer.py):
                 GPU-vs-CPU parity of one small float32 train step (loss,
                 metrics, gradients, BatchNorm statistics; TF32 off) and of
@@ -63,9 +68,13 @@ Phases, each of which raises on failure:
                 replaced), the GFLOP it multiplies, and its schedule
                 (tiles, k-steps, blocks in clusters of two, waves, fill,
                 workspace); the cell is also timed at B = 16, 200 and 400;
-                the float32 CUDA-core kernel at the planner's shapes beside
-                cuDNN's float32 gate conv (TF32 off) and its bound at 67
-                TFLOP/s;
+                the float32 kernel (launches: the float32 plans of phase
+                6) at B = 16, 100, 200 and 400 (256 channels, k = 5 and 3)
+                and at det's shapes (B = 100, 260 channels in padded
+                views), each held to its plain version (1e-4) and timed
+                beside it, cuDNN's float32 gate conv (TF32 off) and its
+                bound at 67 TFLOP/s, with its schedule (tile shape chosen
+                per launch, tiles, blocks an SM) and registers;
  10. serve      plan serving (control/plan_server.py) at the planning
                 config of phase 6: the cell kernel returns identical bits
                 over 50 launches of identical inputs at B = 16, 100, 200
@@ -119,8 +128,8 @@ Phases, each of which raises on failure:
 
 Prints the card line, one JSON line each of the train, serve and variants
 phases and one of kernels (the mask kernel, the sm90 cell at the planner's
-shapes and at det's, the WMMA kernel and the float32 CUDA-core kernel,
-each with its launches on its own path), then, as the last line,
+shapes and at det's, the WMMA kernel and the float32 kernel, each with its
+launches on its own path), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
@@ -211,6 +220,7 @@ DET_CELLS = [(100, 6, 8, 260, 260, 5), (100, 6, 8, 260, 260, 3)]
 # and the det trainer's eval epoch (B = 16)
 DET_SERVE_CELLS = [(B, 6, 8, 260, 260, k) for B in (16, 200, 400) for k in (5, 3)]
 WMMA_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell.cu"
+F32_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell_f32.cu"
 
 
 def cuda_ms(fn, n: int = 20, sleep_cycles: int = 200_000_000) -> float:
@@ -302,7 +312,7 @@ def check_cells(dev):
     # 260 and 258 channels, contiguous (bf16: the WMMA kernel) and in det's
     # layout (bf16: the wgmma/TMA kernel on its packed weights; 13/20
     # padded still the WMMA kernel, Cx odd); float32
-    # cells of every shape take the CUDA-core kernel, in either layout
+    # cells of every shape take the float32 kernel, in either layout
     shapes = PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS + [
         (3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3), (4, 6, 8, 260, 260, 5),
         (4, 6, 8, 258, 258, 3)]
@@ -345,8 +355,9 @@ def check_cells(dev):
                     before = dict(kernels.launches)
                     got = fn(*ins)
                     launched = [kernels.launches[n] - before[n] for n in
-                                ("conv_lstm_cell", "conv_lstm_cell_sm90")]
-                    if launched != [1, int(path == "sm90")]:
+                                ("conv_lstm_cell", "conv_lstm_cell_sm90",
+                                 "conv_lstm_cell_f32")]
+                    if launched != [1, int(path == "sm90"), int(path == "f32")]:
                         raise AssertionError(
                             f"{shape}{layout} {dtype}: {path} expected, "
                             f"launched {launched}")
@@ -379,15 +390,16 @@ def check_small_plan_parity():
         raise AssertionError("GPU plan differs from CPU plan")
 
 
-def canonical_plans(n_timed: int = 3):
-    cfg = Config(**CANONICAL)
+def canonical_plans(n_timed: int = 3, compute_dtype: str = "bfloat16"):
+    """The canonical planner in `compute_dtype`: one warm-up and n_timed
+    timed plans, each finite, shaped and launching `plan_launches` (160
+    cells, all through sm90 in bf16 and all through the float32 kernel in
+    float32, and 10 masks); the counts are zeroed just before them."""
+    cfg = Config(**dict(CANONICAL, compute_dtype=compute_dtype))
     model = svg.init(cfg, seed=0, device="cuda")
     policy = CEMPolicy(cfg, model)
     start, goal = start_goal(np.random.RandomState(0))
-    # per model step, 2 cells in each of the prior and frame stacks
-    cells = 4 * (cfg.horizon - 1) * cfg.opt_iter
-    want = {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
-            "capsule_mask_render": cfg.opt_iter}
+    want = plan_launches(cfg)
     kernels.reset_launches()
     seconds = []
     for i in range(n_timed + 1):
@@ -405,19 +417,35 @@ def canonical_plans(n_timed: int = 3):
             raise AssertionError(f"bad plan {plan!r}")
     launches = dict(kernels.launches)
     rollouts = cfg.opt_iter * cfg.action_candidates
-    print("plan seconds: " + ", ".join(f"{s:.4f}" for s in seconds))
+    print(f"{compute_dtype} plan seconds: "
+          + ", ".join(f"{s:.4f}" for s in seconds))
     latency = float(np.median(seconds))
-    print(f"plan latency {np.median(seconds):.4f} s (median of {n_timed}), "
+    print(f"{compute_dtype} plan latency {np.median(seconds):.4f} s (median of {n_timed}), "
           f"{rollouts / np.median(seconds):.1f} rollouts/s "
           f"({cfg.opt_iter} iterations x {cfg.action_candidates} candidates, "
           f"horizon {cfg.horizon}); kernel launches per plan {want}")
     return launches, policy, start, goal, latency
 
 
+def device_busy_ms(prof) -> float:
+    """The time in which at least one device activity of the profile ran:
+    the union of their intervals (kernels on other streams, as cuDNN's
+    FFT convolutions launch them, overlap)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
 def profile_plan(plan, label="plan"):
     """`plan()` under torch.profiler: device time by kernel, and the share
-    of its wall time in which the device was busy (one stream, so kernel
-    times add up without overlap). Returns (busy ms, wall ms) or None."""
+    of its wall time in which the device was busy (`device_busy_ms`).
+    Returns (busy ms, wall ms, [(ms, count, kernel name), ...] largest
+    first) or None."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -430,16 +458,17 @@ def profile_plan(plan, label="plan"):
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
-    busy = sum(r[0] for r in rows)
+    busy = device_busy_ms(prof)
     if not busy:
         print(f"profiler recorded no device time: {label} busy share not "
               "measured")
         return None
     print(f"profiled {label}: {wall:.1f} ms wall (profiler on), device busy "
-          f"{busy:.1f} ms = {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
+          f"{busy:.1f} ms = {busy / wall:.1%}, idle {1 - busy / wall:.1%} "
+          f"(kernel time summed over streams {sum(r[0] for r in rows):.1f} ms)")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.2f} ms {ms / busy:6.1%} {n:5d}x  {key[:100]}")
-    return busy, wall
+    return busy, wall, rows
 
 
 # ----------------------------------------------------------------- serve
@@ -483,9 +512,7 @@ def check_serve(local_latency):
         launched = dict(kernels.launches)
     finally:
         kernels.conv_lstm_cell = cell
-    cells = 4 * (cfg.horizon - 1) * cfg.opt_iter
-    want = {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
-            "capsule_mask_render": cfg.opt_iter}
+    want = plan_launches(cfg)
     if launched != want or set(rows) != {4 * cfg.action_candidates}:
         raise AssertionError(f"batched plan of 4 launched {launched} at B = "
                              f"{sorted(set(rows))}, expected {want} at 400")
@@ -504,9 +531,7 @@ def check_serve(local_latency):
         server.close()
         thread.join(timeout=10)
     programs = served["plan_programs"]
-    want = {"conv_lstm_cell": cells * programs,
-            "conv_lstm_cell_sm90": cells * programs,
-            "capsule_mask_render": cfg.opt_iter * programs}
+    want = {name: n * programs for name, n in plan_launches(cfg).items()}
     if served_launches != want:
         raise AssertionError(f"served plans launched {served_launches}, "
                              f"expected {want} for {programs} plan programs")
@@ -525,7 +550,7 @@ def check_serve(local_latency):
                small_invariance=small, batched_diff=checks["batched"],
                local_single_plan_s=local_latency)
     if prof:
-        out["batched_plan_busy_ms"], out["batched_plan_wall_ms"] = prof
+        out["batched_plan_busy_ms"], out["batched_plan_wall_ms"] = prof[:2]
         out["batched_plan_busy_share"] = prof[0] / prof[1]
     return out
 
@@ -828,7 +853,7 @@ def check_trainer():
         cells = (6 * (cfg.n_eval - 1) * (cfg.video_length // cfg.n_eval) * 2
                  * eval_batches)
         if launched != {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
-                        "capsule_mask_render": 0}:
+                        "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}:
             raise AssertionError(f"trainer launched {launched}, expected "
                                  f"{cells} cells, all through sm90")
         path = ckpt.latest_checkpoint(tr.log_dir)
@@ -877,7 +902,7 @@ def check_det_cells(dev):
         got = kernels.conv_lstm_cell(*args)
         launched = {k: kernels.launches[k] - before[k] for k in before}
         if launched != {"conv_lstm_cell": 1, "conv_lstm_cell_sm90": 1,
-                        "capsule_mask_render": 0}:
+                        "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}:
             raise AssertionError(f"{shape}: launched {launched}, expected one "
                                  "sm90 launch")
         if not all(bool(torch.isfinite(t).all()) for t in got):
@@ -927,7 +952,7 @@ def variant_plans(name, n_timed=3):
     out = dict(latency_s=latency, latency_runs=seconds, launches=launches,
                launches_per_plan=want)
     if prof:
-        out["busy_ms"], out["wall_ms"] = prof
+        out["busy_ms"], out["wall_ms"] = prof[:2]
         out["busy_share"] = prof[0] / prof[1]
     return cfg, policy, out
 
@@ -1058,38 +1083,95 @@ def time_det_cells(dev, launches, errs):
     return sm90_entry, wmma_entry
 
 
-def time_f32_cell(dev, errs, launches):
-    """The kernels line's entry for the float32 CUDA-core kernel of
-    csrc/conv_lstm_cell.cu at the planner's shapes (no plan of the
-    canonical config launches it: float32 cells run in the GPU-vs-CPU
-    parity phases, `launches`), beside the plain version, cuDNN's float32
-    gate conv with TF32 off, and its bound at 67 TFLOP/s float32."""
+def time_f32_cell(dev, launches, launches_parity):
+    """The kernels line's entry for the float32 kernel of
+    csrc/conv_lstm_cell_f32.cu: at the planner's, the eval epoch's and the
+    served shapes (256 channels) and at det's plan shapes (260 channels in
+    padded views, NaN pad lanes), each first held to the plain version
+    (1e-4, TF32 off) with one launch through the kernel, then timed in
+    turns (kernel, plain, cuDNN's float32 gate conv, kernel, kernel) beside
+    its bound at 67 TFLOP/s and its schedule. ms, plain_ms, library_ms and
+    bound_ms are the means of the planner's two shapes (B = 100, k = 5 and
+    3), which a float32 plan launches equally often; `launches` are the
+    float32 plans' (phase 6), `launches_parity` the small parity plans'."""
     rows = []
-    for shape in PLANNER_CELLS:
+    cases = ([(shape, False) for shape in PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS]
+             + [(shape, True) for shape in DET_CELLS])
+    for shape, det in cases:
         B, H, W, Cx, C, k = shape
-        args = cell_inputs(B, H, W, Cx, C, k, torch.float32, dev, 7)
-        ms = [cuda_ms(lambda: kernels.conv_lstm_cell(*args), n=5)
-              for _ in range(2)]
+        raw = cell_inputs(*shape, torch.float32, dev, 7)
+        args = det_layout(*raw) if det else raw
+        before = kernels.launches["conv_lstm_cell_f32"]
+        got = kernels.conv_lstm_cell(*args)
+        if kernels.launches["conv_lstm_cell_f32"] != before + 1:
+            raise AssertionError(f"{shape} float32: not through the float32 kernel")
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            raise AssertionError(f"{shape} float32: non-finite outputs")
+        err = cell_err(got, kernels.conv_lstm_cell_plain(*raw),
+                       CELL_TOL[torch.float32])
+        run = lambda: kernels.conv_lstm_cell(*args)
+        ms = [cuda_ms(run, n=5)]
         plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(*args), n=5)
-        lib = gate_conv_ms(*args[:2], args[3], args[4])
-        ops, (bound, by) = cell_bound(*args, PEAK_F32)
-        rows.append(dict(B=B, k=k, ms=float(np.mean(ms)), ms_runs=ms,
-                         plain_ms=plain, library_ms=lib, bound_ms=bound,
-                         bound_by=by, gflop=ops / 1e9,
-                         max_abs_err=errs[(shape, "f32")]))
-        print(f"cell B={B} k={k} float32 (CUDA cores): kernel "
-              f"{rows[-1]['ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in ms)})"
-              f", plain {plain:.4f} ms, cuDNN float32 gate conv (TF32 off) "
-              f"{lib:.4f} ms, bound {bound:.4f} ms ({by}, {ops / 1e9:.1f} "
-              f"GFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s) = "
-              f"{rows[-1]['ms'] / bound:.2f}x the bound")
-    mean = lambda key: sum(r[key] for r in rows) / len(rows)
-    return dict(name="conv_lstm_cell_f32", route="cuda", source=WMMA_SRC,
-                replaces=CELL_REPLACES, launches=0, launches_parity=launches,
+        lib = gate_conv_ms(*raw[:2], raw[3], raw[4])
+        ms += [cuda_ms(run, n=5) for _ in range(2)]
+        ops, (bound, by) = cell_bound(*raw, PEAK_F32)
+        s = kernels.f32_schedule(*shape, dev)
+        mean_ms = float(np.mean(ms))
+        row = dict(B=B, k=k, C=C, layout="padded" if det else "contiguous",
+                   ms=mean_ms, ms_runs=ms, plain_ms=plain, library_ms=lib,
+                   bound_ms=bound, bound_by=by, gflop=ops / 1e9,
+                   gflop_multiplied=2.0 * s["macs"] / 1e9,
+                   tflops_multiplied=2.0 * s["macs"] / mean_ms / 1e9,
+                   schedule=s, waves=s["tiles"] / (s["blocks_per_sm"] * s["sms"]),
+                   max_abs_err=err)
+        rows.append(row)
+        print(f"cell B={B} k={k} C={C}{' (det, padded)' if det else ''} "
+              f"float32: kernel {mean_ms:.4f} ms ("
+              + ", ".join(f"{v:.4f}" for v in ms)
+              + f"), plain {plain:.4f} ms, cuDNN float32 gate conv (TF32 off) "
+              f"{lib:.4f} ms (kernel {mean_ms / lib:.3f}x it), bound "
+              f"{bound:.4f} ms ({by}, {row['gflop']:.1f} GFLOP at "
+              f"{PEAK_F32 / 1e12:.0f} TFLOP/s) = {mean_ms / bound:.2f}x the "
+              f"bound; {row['gflop_multiplied']:.1f} GFLOP multiplied = "
+              f"{row['tflops_multiplied']:.1f} TFLOP/s; tile "
+              f"{s['bm']}x{s['nh']} ({s['threads']} threads), {s['tiles']} "
+              f"tiles, {s['blocks_per_sm']} blocks an SM, "
+              f"{row['waves']:.2f} waves; max |kernel - plain| {err:.3g}")
+    ptxas = ptxas_info("conv_lstm_cell_f32")
+    print("ptxas, conv_lstm_cell_f32.cu: " + ptxas)
+    plan = [r for r in rows if r["B"] == PLANNER_CELLS[0][0] and r["C"] == 256]
+    mean = lambda key: sum(r[key] for r in plan) / len(plan)
+    return dict(name="conv_lstm_cell_f32", route="cuda", source=F32_SRC,
+                replaces=CELL_REPLACES, launches=launches,
+                launches_parity=launches_parity,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=mean("ms"), plain_ms=mean("plain_ms"),
-                bound_ms=mean("bound_ms"), bound_by=rows[0]["bound_by"],
-                library_ms=mean("library_ms"), per_shape=rows)
+                bound_ms=mean("bound_ms"), bound_by=plan[0]["bound_by"],
+                library_ms=mean("library_ms"),
+                schedule={f"B={r['B']} k={r['k']} C={r['C']}": r["schedule"]
+                          for r in rows},
+                ptxas=ptxas, per_shape=rows)
+
+
+def f32_plan_summary(latency, launches, prof) -> dict:
+    """The float32 canonical plans' numbers: latency, launches, and from
+    the profiled plan the device's busy time, the kernel time summed over
+    streams and the cell kernel's part of that sum."""
+    out = dict(latency_s=latency, launches=launches)
+    if prof:
+        busy, wall, rows = prof
+        cell = [(ms, n) for ms, n, key in rows if "cell_kernel" in key]
+        out.update(busy_ms=busy, wall_ms=wall, busy_share=busy / wall,
+                   kernel_ms=sum(r[0] for r in rows),
+                   cell_ms=sum(ms for ms, _ in cell),
+                   cell_launches=sum(n for _, n in cell))
+        out["cell_share"] = out["cell_ms"] / out["kernel_ms"]
+        print(f"float32 plan: latency {latency:.4f} s, device busy {busy:.1f} "
+              f"ms ({busy / wall:.1%}), kernel time summed "
+              f"{out['kernel_ms']:.1f} ms, the cell kernel "
+              f"{out['cell_ms']:.1f} ms in {out['cell_launches']} launches = "
+              f"{out['cell_share']:.1%} of it")
+    return out
 
 
 def variant_train_step(name, dev):
@@ -1174,7 +1256,7 @@ def check_copy_and_resume():
         cells = (2 * (base["n_eval"] - 1) * (base["video_length"] // base["n_eval"])
                  * 2 * 2)  # 1-step and autoregressive, 2 test batches
         if det_eval != {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
-                        "capsule_mask_render": 0}:
+                        "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}:
             raise AssertionError(f"det trainer's eval epoch launched "
                                  f"{det_eval}, expected {cells} sm90 cells")
         path = ckpt.latest_checkpoint(first.log_dir)
@@ -1280,19 +1362,28 @@ def main() -> int:
     phase("parity")
     kernels.reset_launches()
     check_small_plan_parity()
-    # every cell of the small float32 plans goes to the CUDA-core kernel
-    f32_launches = kernels.launches["conv_lstm_cell"]
+    # every cell of the small float32 plans goes to the float32 kernel
+    f32_parity = kernels.launches["conv_lstm_cell_f32"]
+    if not f32_parity or f32_parity != kernels.launches["conv_lstm_cell"]:
+        raise AssertionError(f"small float32 plans launched {kernels.launches}")
 
     phase("plan")
     launches, policy, start, goal, latency = canonical_plans()
+    f32_launches, f32_policy, _, _, f32_latency = canonical_plans(
+        compute_dtype="float32")
     phase("profile")
     profile_plan(lambda: policy.get_action(start, goal, ep_num=2, step=0))
+    f32_plan = f32_plan_summary(f32_latency, f32_launches, profile_plan(
+        lambda: f32_policy.get_action(start, goal, ep_num=2, step=0),
+        "float32 plan"))
+    del f32_policy
     phase("kernels")
     line = {"kernels": [
         time_mask(dev, launches["capsule_mask_render"], mask_err),
         time_cell(dev, launches["conv_lstm_cell_sm90"], cell_errs),
     ]}
-    f32_entry = time_f32_cell(dev, cell_errs, f32_launches)
+    f32_entry = time_f32_cell(dev, f32_launches["conv_lstm_cell_f32"], f32_parity)
+    f32_entry["plan"] = f32_plan
     phase("serve")
     serve = check_serve(latency)
     for entry, name in zip(line["kernels"],

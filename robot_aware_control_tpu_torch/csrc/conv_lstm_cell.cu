@@ -1,17 +1,24 @@
-// Fused ConvLSTM cell for Hopper (sm_90a): one launch computes
+// Fused ConvLSTM cell, bfloat16 on the tensor cores through WMMA (mma.sync
+// underneath), for the bf16 cells the wgmma/TMA kernel cannot take. One
+// launch computes
 //   gates = conv_SAME_kxk(cat(x, h), w) + b      (gate order i, f, o, g)
 //   c' = sigmoid(f) * c + sigmoid(i) * tanh(g),  h' = sigmoid(o) * tanh(c')
-// with the gates accumulated in float32 and h', c' written in x's type.
+// with the gates accumulated in float32 and h', c' written in bfloat16.
 //
 // Replaces: robot_aware_control_tpu/ops/pallas_kernels.py:_fused_cell_fwd
-// (body _conv_lstm_kernel, wrapper fused_conv_lstm_cell).
+// (body _conv_lstm_kernel, wrapper fused_conv_lstm_cell) for bf16 cells
+// whose channel counts are odd, whose pixel strides are not multiples of 8
+// elements or whose tensors are not 16-byte aligned: shapes TMA cannot
+// describe. The planner's and det's cells take the wgmma/TMA kernel of
+// conv_lstm_cell_sm90.cu, about 6x faster at k = 5; float32 cells take
+// conv_lstm_cell_f32.cu.
 //
-// What bounds it on an H100: at the planner's shapes (B = 100 candidates,
-// 6x8 feature maps, Cx = C = 256, bf16) cell0 (k = 5) is a
-// 4800 x 12800 x 1024 product, 126 GFLOP dense or 85 GFLOP once the taps
-// that fall on the zero border are left out, and moves 38 MB (26 MB of it
-// weights): about 86 us at 989 TFLOP/s against 11 us at 3.35 TB/s, so it
-// is bound by operations, as is cell1 (k = 3, 37 GFLOP without the border).
+// What bounds it on an H100: at B = 100 candidates, 6x8 feature maps,
+// Cx = C = 256, cell0 (k = 5) is a 4800 x 12800 x 1024 product, 126 GFLOP
+// dense or 85 GFLOP once the taps that fall on the zero border are left
+// out, and moves 38 MB (26 MB of it weights): about 86 us at 989 TFLOP/s
+// against 11 us at 3.35 TB/s, so it is bound by operations, as is cell1
+// (k = 3, 37 GFLOP without the border).
 //
 // Design: an implicit-GEMM convolution. Rows are the B*H*W output pixels,
 // columns one tile of hidden channels taken in all four gates, so a block
@@ -19,23 +26,16 @@
 // its epilogue: the (B, H, W, 4C) gate tensor never reaches device memory.
 // The reduction runs over k*k taps times Cx + C input channels, reading x
 // and h separately with the border masked, so the padded concatenation the
-// TPU wrapper builds is never materialised. Two paths:
-//   * bfloat16: 16x16x16 bf16 tensor-core products (WMMA, mma.sync
-//     underneath) with float32 sums, over 128-pixel x 128-column tiles
-//     whose operands are staged through two shared-memory buffers: the next
-//     tile's 16-byte global loads are in flight while the warps multiply
-//     the current one. The sums go through shared memory to the fused LSTM
-//     update. The wrapper sends it only the bf16 cells TMA cannot
-//     describe (odd channel counts, pixel strides that are not multiples of
-//     8, unaligned tensors); the planner's and det's cells take the
-//     wgmma/TMA kernel of conv_lstm_cell_sm90.cu, about 6x faster at k = 5.
-//   * float32: plain FMA loops on the CUDA cores over shared-memory tiles,
-//     so that float32 cells agree with float32 references to float32
-//     rounding.
-// Weights arrive in HWIO order, (k, k, Cx + C, 4C) contiguous, in x's type,
-// packed once at load. x, h, c and the outputs are NHWC with contiguous
-// channels at a pixel stride of the caller's (ldx, ldh, ldc, ldo): a (B, H,
-// W, C) view of a buffer with more channels a pixel is read in place.
+// TPU wrapper builds is never materialised. 16x16x16 bf16 products with
+// float32 sums, over 128-pixel x 128-column tiles whose operands are
+// staged through two shared-memory buffers: the next tile's 16-byte global
+// loads (element-wise ones where channels or strides are not multiples of
+// 8) are in flight while the warps multiply the current one. The sums go
+// through shared memory to the fused LSTM update. Weights arrive in HWIO
+// order, (k, k, Cx + C, 4C) contiguous bf16. x, h, c and the outputs are
+// NHWC with contiguous channels at a pixel stride of the caller's (ldx,
+// ldh, ldc, ldo): a (B, H, W, C) view of a buffer with more channels a
+// pixel is read in place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,146 +48,6 @@ namespace {
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
-
-// ---------------------------------------------------------------------------
-// float32: CUDA-core FMA loops
-
-namespace simt {
-
-constexpr int BM = 64;  // output pixels per block
-constexpr int BN = 32;  // hidden channels per block (x4 gates = 128 columns)
-constexpr int BK = 16;  // input channels of one tap per reduction step
-constexpr int TM = 4;   // pixels per thread
-constexpr int TN = 2;   // hidden channels per thread
-constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
-constexpr int A_PER = BK * BM / kThreads;        // A elements loaded a thread
-constexpr int B_PER = BK * 4 * BN / kThreads;    // B elements loaded a thread
-constexpr int A_LD = BM + 4;  // padded row: fewer bank conflicts on store
-
-__global__ void __launch_bounds__(kThreads)
-    cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                const float* __restrict__ c, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ h_out,
-                float* __restrict__ c_out, int M, int H, int W, int Cx, int C,
-                int k, long long ldx, long long ldh, long long ldc, long long ldo) {
-  __shared__ __align__(16) float As[BK][A_LD];
-  __shared__ __align__(16) float Bs[BK][4 * BN];
-
-  const int Cin = Cx + C;
-  const long long C4 = 4LL * C;
-  const int pad = k / 2;
-  const int HW = H * W;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int tm = tid / (BN / TN);
-  const int tn = tid % (BN / TN);
-
-  float acc[TM][TN][4];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int n = n0 + tn * TN + j;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float bv = n < C ? bias[g * C + n] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) acc[i][j][g] = bv;
-    }
-  }
-
-  // The pixels whose inputs this thread stages are fixed for the whole
-  // reduction: neighbouring threads take neighbouring channels of one
-  // pixel, so the global loads of a warp are contiguous runs.
-  int a_kk[A_PER], a_mm[A_PER], a_b[A_PER], a_y[A_PER], a_x[A_PER];
-  bool a_ok[A_PER];
-#pragma unroll
-  for (int r = 0; r < A_PER; ++r) {
-    const int e = tid + r * kThreads;
-    a_kk[r] = e % BK;
-    a_mm[r] = e / BK;
-    const int m = m0 + a_mm[r];
-    a_ok[r] = m < M;
-    const int mc = a_ok[r] ? m : 0;
-    a_b[r] = mc / HW;
-    a_y[r] = (mc % HW) / W;
-    a_x[r] = mc % W;
-  }
-
-  for (int tap = 0; tap < k * k; ++tap) {
-    const int dy = tap / k - pad;
-    const int dx = tap % k - pad;
-    const float* w_tap = w + static_cast<long long>(tap) * Cin * C4;
-    for (int c0 = 0; c0 < Cin; c0 += BK) {
-#pragma unroll
-      for (int r = 0; r < A_PER; ++r) {
-        const int ci = c0 + a_kk[r];
-        const int yy = a_y[r] + dy;
-        const int xx = a_x[r] + dx;
-        float v = 0.0f;
-        if (a_ok[r] && ci < Cin && yy >= 0 && yy < H && xx >= 0 && xx < W) {
-          const long long pix = (static_cast<long long>(a_b[r]) * H + yy) * W + xx;
-          v = ci < Cx ? x[pix * ldx + ci] : h[pix * ldh + (ci - Cx)];
-        }
-        As[a_kk[r]][a_mm[r]] = v;
-      }
-#pragma unroll
-      for (int r = 0; r < B_PER; ++r) {
-        const int e = tid + r * kThreads;
-        const int kk = e / (4 * BN);
-        const int col = e % (4 * BN);
-        const int g = col / BN;
-        const int n = n0 + col % BN;
-        const int ci = c0 + kk;
-        float v = 0.0f;
-        if (ci < Cin && n < C) v = w_tap[ci * C4 + g * C + n];
-        Bs[kk][col] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][tm * TM]);
-        const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-        float b[4][TN];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float2 b2 =
-              *reinterpret_cast<const float2*>(&Bs[kk][g * BN + tn * TN]);
-          b[g][0] = b2.x;
-          b[g][1] = b2.y;
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-              acc[i][j][g] = fmaf(a[i], b[g][j], acc[i][j][g]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + tm * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tn * TN + j;
-      if (n >= C) continue;
-      const float gi = sigmoid(acc[i][j][0]);
-      const float gf = sigmoid(acc[i][j][1]);
-      const float go = sigmoid(acc[i][j][2]);
-      const float gg = tanhf(acc[i][j][3]);
-      const float c_new = gf * c[m * ldc + n] + gi * gg;
-      const long long o = m * ldo + n;
-      h_out[o] = go * tanhf(c_new);
-      c_out[o] = c_new;
-    }
-  }
-}
-
-}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores
@@ -396,29 +256,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 }  // namespace
 
-// x (B, H, W, Cx), h and c (B, H, W, C), w (k, k, Cx + C, 4C) in one type
-// (float32 or bfloat16), bias (4C,) float32, outputs (B, H, W, C) in the
-// inputs' type, on the device. x, h, c and the outputs have
-// contiguous channels and pixel strides ldx, ldh, ldc and ldo (elements; a
-// contiguous tensor's is its channel count), w and bias are contiguous.
-// Each returns the cudaError_t of its launch (0 on success).
-extern "C" int conv_lstm_cell_f32(const void* x, const void* h, const void* c,
-                                  const void* w, const void* b, void* h_out,
-                                  void* c_out, int B, int H, int W, int Cx,
-                                  int C, int k, int ldx, int ldh, int ldc, int ldo,
-                                  void* stream) {
-  const int M = B * H * W;
-  if (M == 0) return 0;
-  const dim3 grid((M + simt::BM - 1) / simt::BM, (C + simt::BN - 1) / simt::BN);
-  simt::cell_kernel<<<grid, simt::kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(h),
-      static_cast<const float*>(c), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(h_out),
-      static_cast<float*>(c_out), M, H, W, Cx, C, k, ldx, ldh, ldc, ldo);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// x (B, H, W, Cx), h and c (B, H, W, C), w (k, k, Cx + C, 4C) bfloat16,
+// bias (4C,) float32, outputs (B, H, W, C) bfloat16, on the device. x, h,
+// c and the outputs have contiguous channels and pixel strides ldx, ldh,
+// ldc and ldo (elements; a contiguous tensor's is its channel count), w
+// and bias are contiguous. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int conv_lstm_cell_bf16(const void* x, const void* h, const void* c,
                                    const void* w, const void* b, void* h_out,
                                    void* c_out, int B, int H, int W, int Cx,

@@ -13,15 +13,16 @@ Two kernels replace the JAX package's two Pallas kernels
     whose pixel strides are multiples of 8 elements, on 16-byte aligned
     tensors (the planner's, and det's 260 channels in padded views), take
     the wgmma/TMA kernel of csrc/conv_lstm_cell_sm90.cu (`takes_sm90`);
-    other bf16 cells the WMMA kernel and float32 cells the CUDA-core
-    kernel of csrc/conv_lstm_cell.cu. Every path takes the weights as
-    (k, k, Cx + C, 4C); the wrapper gives the wgmma/TMA kernel alone a
-    gate-packed copy where C is not a multiple of 8 (`sm90_weights`). The
-    path depends only on dtype, shape, strides and alignment, and each
-    kernel's result for a batch entry depends on that entry's inputs
-    alone: not on B, not on where the entry sits in the batch, not on the
-    order in which blocks finish (the planner's batched and single plans
-    rely on it, planning/cem.py).
+    other bf16 cells the WMMA kernel of csrc/conv_lstm_cell.cu. Every
+    float32 cell takes the CUDA-core kernel of csrc/conv_lstm_cell_f32.cu
+    (FFMA, no TF32; its tile shape chosen per launch, `f32_schedule`).
+    Every path takes the weights as (k, k, Cx + C, 4C); the wrapper gives
+    the wgmma/TMA kernel alone a gate-packed copy where C is not a
+    multiple of 8 (`sm90_weights`). The path depends only on dtype, shape,
+    strides and alignment, and each kernel's result for a batch entry
+    depends on that entry's inputs alone: not on B, not on where the entry
+    sits in the batch, not on the order in which blocks finish (the
+    planner's batched and single plans rely on it, planning/cem.py).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback from one to the
@@ -81,12 +82,14 @@ SOURCES = {
         f"-DMASK_MAX_MAGNITUDE={MASK_MAX_MAGNITUDE.hex()}f"]),
     "conv_lstm_cell": ("conv_lstm_cell.cu", ["-Xptxas", "-v"]),
     "conv_lstm_cell_sm90": ("conv_lstm_cell_sm90.cu", ["-Xptxas", "-v"]),
+    "conv_lstm_cell_f32": ("conv_lstm_cell_f32.cu", ["-Xptxas", "-v"]),
 }
 
-# "conv_lstm_cell" counts every cell launch, "conv_lstm_cell_sm90" those of
-# them that took the wgmma/TMA kernel
+# "conv_lstm_cell" counts every cell launch, "conv_lstm_cell_sm90" and
+# "conv_lstm_cell_f32" those of them that took the wgmma/TMA kernel and the
+# float32 kernel
 launches = {"capsule_mask_render": 0, "conv_lstm_cell": 0,
-            "conv_lstm_cell_sm90": 0}
+            "conv_lstm_cell_sm90": 0, "conv_lstm_cell_f32": 0}
 # library name -> compiler output and seconds of the build in this process
 build_log: dict = {}
 
@@ -162,10 +165,14 @@ def bind(name: str, lib):
         # weights' gate stride and tail block column, the stream
         fns = [(lib.conv_lstm_cell_sm90, [ptr] * 9 + [i] * 12 + [ptr]),
                (lib.conv_lstm_cell_sm90_schedule, [i] * 7 + [ptr])]
+    elif name == "conv_lstm_cell_f32":
+        # pointers, B, H, W, Cx, C, k, the four pixel strides, the tile
+        # shape, the stream
+        fns = [(lib.conv_lstm_cell_f32, [ptr] * 7 + [i] * 11 + [ptr]),
+               (lib.conv_lstm_cell_f32_schedule, [i] * 6 + [ptr])]
     else:
         # pointers, B, H, W, Cx, C, k, the four pixel strides, the stream
-        fns = [(fn, [ptr] * 7 + [i] * 10 + [ptr])
-               for fn in (lib.conv_lstm_cell_f32, lib.conv_lstm_cell_bf16)]
+        fns = [(lib.conv_lstm_cell_bf16, [ptr] * 7 + [i] * 10 + [ptr])]
     for fn, types in fns:
         fn.argtypes = types
         fn.restype = i
@@ -306,10 +313,6 @@ def conv_lstm_cell_plain(x, h, c, w, b):
     return h_new.to(x.dtype), c_new.to(x.dtype)
 
 
-_CELL_FN = {torch.float32: "conv_lstm_cell_f32",
-            torch.bfloat16: "conv_lstm_cell_bf16"}
-
-
 def round_up(n: int, m: int = 8) -> int:
     return -(-n // m) * m
 
@@ -413,7 +416,8 @@ def _check_cuda_cell(x, h, c, w, b):
     _check_no_grad("conv_lstm_cell", x, h, c, w, b)
     _check(all(t.device == x.device for t in (h, c, w, b)),
            "all inputs must be on one device")
-    _check(x.dtype in _CELL_FN and h.dtype == c.dtype == w.dtype == x.dtype,
+    _check(x.dtype in (torch.float32, torch.bfloat16)
+           and h.dtype == c.dtype == w.dtype == x.dtype,
            f"x, h, c, w must share float32 or bfloat16, got "
            f"{x.dtype}/{h.dtype}/{c.dtype}/{w.dtype}")
     _check(b.dtype == torch.float32, "b must be float32")
@@ -464,20 +468,64 @@ def sm90_schedule(Bn, H, W, Cx, C, k, device=None) -> dict:
     return dict(_sm90_schedule(Bn, H, W, Cx, C, k, index))
 
 
-def _launch_cell(fn_name, dims, x, h, c, w, b):
-    """A function of conv_lstm_cell.cu on w (k, k, Cx + C, 4C). h' and c'
-    are allocated in h's layout."""
+def launch_wmma(dims, x, h, c, w, b):
+    """The WMMA kernel of conv_lstm_cell.cu (bf16) on w (k, k, Cx + C, 4C).
+    h' and c' are allocated in h's layout."""
     Bn, H, W, Cx, C, k = dims
     h_out, c_out = empty_nhwc_like(h), empty_nhwc_like(h)
     lds = [pixel_stride(t) for t in (x, h, c, h_out)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib("conv_lstm_cell"), fn_name)(
+        err = _lib("conv_lstm_cell").conv_lstm_cell_bf16(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
             b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
             Bn, H, W, Cx, C, k, *lds, stream)
-    _check_err(err, fn_name)
+    _check_err(err, "conv_lstm_cell_bf16")
     launches["conv_lstm_cell"] += 1
+    return h_out, c_out
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_schedule(Bn, H, W, Cx, C, k, device) -> dict:
+    out = (ctypes.c_longlong * 8)()
+    with torch.cuda.device(device):
+        err = _lib("conv_lstm_cell_f32").conv_lstm_cell_f32_schedule(
+            Bn, H, W, Cx, C, k, ctypes.addressof(out))
+    _check_err(err, "conv_lstm_cell_f32_schedule")
+    return dict(zip(("shape", "bm", "nh", "threads", "tiles",
+                     "blocks_per_sm", "sms", "macs"), out))
+
+
+def f32_schedule(Bn, H, W, Cx, C, k, device=None) -> dict:
+    """The float32 kernel's schedule on `device`: its tile shape (index
+    into csrc/conv_lstm_cell_f32_geom.h's shapes: 128 x 32 where the
+    launch fills two waves of resident blocks, else 64 x 32), the pixels
+    (bm) and hidden channels (nh) of a tile, threads a block, tiles (one
+    block each, heaviest rows first), blocks resident on an SM, SMs, and
+    the multiply-adds the blocks do."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return dict(_f32_schedule(Bn, H, W, Cx, C, k, index))
+
+
+def launch_f32(dims, x, h, c, w, b, shape=None):
+    """The float32 kernel of conv_lstm_cell_f32.cu on w (k, k, Cx + C, 4C),
+    at tile shape `shape` (default: `f32_schedule`'s choice; any shape
+    gives the same bits). h' and c' are allocated in h's layout."""
+    Bn, H, W, Cx, C, k = dims
+    if shape is None:
+        shape = f32_schedule(Bn, H, W, Cx, C, k, x.device)["shape"]
+    h_out, c_out = empty_nhwc_like(h), empty_nhwc_like(h)
+    lds = [pixel_stride(t) for t in (x, h, c, h_out)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib("conv_lstm_cell_f32").conv_lstm_cell_f32(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
+            b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+            Bn, H, W, Cx, C, k, *lds, shape, stream)
+    _check_err(err, "conv_lstm_cell_f32")
+    launches["conv_lstm_cell"] += 1
+    launches["conv_lstm_cell_f32"] += 1
     return h_out, c_out
 
 
@@ -519,16 +567,19 @@ def conv_lstm_cell(x, h, c, w, b):
         return (empty_nhwc_like(h).copy_(h_new),
                 empty_nhwc_like(h).copy_(c_new))
     _check_cuda_cell(x, h, c, w, b)
+    if x.dtype == torch.float32:
+        return launch_f32(dims, x, h, c, w, b)
     if takes_sm90(x, h, c, w):
         return launch_sm90(dims, x, h, c, *sm90_weights(w, dims[4]), b)
-    return _launch_cell(_CELL_FN[x.dtype], dims, x, h, c, w, b)
+    return launch_wmma(dims, x, h, c, w, b)
 
 
 def conv_lstm_cell_wmma(x, h, c, w, b):
-    """The WMMA kernel of csrc/conv_lstm_cell.cu on any bf16 CUDA cell.
-    `conv_lstm_cell` sends it only the cells TMA cannot describe; this
-    entry point times it beside the wgmma kernel on the same inputs."""
+    """The WMMA kernel of csrc/conv_lstm_cell.cu (bf16 on mma.sync) on any
+    bf16 CUDA cell. `conv_lstm_cell` sends it only the bf16 cells
+    TMA cannot describe; this entry point times it beside the wgmma kernel
+    on the same inputs."""
     dims = _check_cell(x, h, c, w, b)
     _check_cuda_cell(x, h, c, w, b)
     _check(x.dtype == torch.bfloat16, "the WMMA kernel takes bfloat16")
-    return _launch_cell("conv_lstm_cell_bf16", dims, x, h, c, w, b)
+    return launch_wmma(dims, x, h, c, w, b)

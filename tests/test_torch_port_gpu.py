@@ -37,8 +37,10 @@ from torch_variant_cases import (
     CANONICAL,
     TRAIN_VARIANTS,
     VARIANTS,
+    plan_launches,
     small_cost_parity,
     small_plan_parity,
+    start_goal,
 )
 
 pytestmark = pytest.mark.gpu
@@ -115,7 +117,8 @@ def _assert_cell_close(got, want, dtype, tol):
                                        (torch.bfloat16, 1e-2)])
 # bf16 with channels in multiples of 8 takes the wgmma/TMA kernel; 13/20
 # channels the WMMA kernel's element-wise loads, and C=20 leaves part of a
-# 32-channel tile empty; float32 always the CUDA-core kernel
+# 32-channel tile empty; float32 always the float32 kernel (4-byte copies
+# at 13/20 channels)
 @pytest.mark.parametrize("B,H,W,Cx,C,k", [(3, 5, 7, 24, 40, 5),
                                           (2, 6, 8, 13, 20, 3)])
 def test_gpu_cell_kernel_matches_plain(cuda, monkeypatch, dtype, tol,
@@ -130,6 +133,8 @@ def test_gpu_cell_kernel_matches_plain(cuda, monkeypatch, dtype, tol,
     assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
     assert (kernels.launches["conv_lstm_cell_sm90"]
             == before["conv_lstm_cell_sm90"] + sm90)
+    assert (kernels.launches["conv_lstm_cell_f32"]
+            == before["conv_lstm_cell_f32"] + (dtype == torch.float32))
     _assert_cell_close(got, kernels.conv_lstm_cell_plain(*args), dtype, tol)
 
 
@@ -212,7 +217,7 @@ def test_gpu_small_plan_goes_through_both_kernels(cuda, monkeypatch):
                                ).get_action(start, goal, noise=noise)
         launched = {k: kernels.launches[k] - before[k] for k in before}
     assert launched == {"conv_lstm_cell": 16, "conv_lstm_cell_sm90": 0,
-                        "capsule_mask_render": 2}
+                        "conv_lstm_cell_f32": 16, "capsule_mask_render": 2}
     np.testing.assert_allclose(plans["cuda"], plans["cpu"], atol=1e-4)
 
 
@@ -295,8 +300,18 @@ def test_gpu_cell_result_depends_on_its_row_alone(cuda, k, channels):
     cell_invariance(cuda, ks=(k,), channels=channels)
 
 
+@pytest.mark.parametrize("k", [5, 3])
+def test_gpu_f32_cell_result_depends_on_its_row_alone(cuda, k):
+    """The same for the float32 kernel at the planner's widths (256
+    channels, B = 16, 100, 200 and 400), every launch through it."""
+    before = dict(kernels.launches)
+    cell_invariance(cuda, ks=(k,), dtype=torch.float32)
+    launched = {n: kernels.launches[n] - before[n] for n in before}
+    assert launched["conv_lstm_cell_f32"] == launched["conv_lstm_cell"] > 0
+
+
 def test_gpu_small_cell_kernels_depend_on_their_row_alone(cuda):
-    """The same for the WMMA (bf16) and CUDA-core (float32) kernels."""
+    """The same for the WMMA (bf16) and float32 kernels at small shapes."""
     assert len(small_cell_invariance(cuda)) == 4
 
 
@@ -380,7 +395,7 @@ def test_gpu_cell_kernels_match_plain_at_det_channels(cuda, monkeypatch,
     """det's channel counts (Cx = C: 20 at the small config, 260 at the
     canonical, 258 without state maps), contiguous or in det's layout
     (NaN pad lanes), on the parameters' (k, k, 2C, 4C) weights: float32
-    through the CUDA-core kernel to 1e-4 (TF32 off on the plain side), bf16
+    through the float32 kernel to 1e-4 (TF32 off on the plain side), bf16
     contiguous through the WMMA kernel and padded through the wgmma/TMA
     kernel (on its packed copy) to one bf16 rounding step; finite outputs
     in h's layout."""
@@ -393,6 +408,8 @@ def test_gpu_cell_kernels_match_plain_at_det_channels(cuda, monkeypatch,
     assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
     assert (kernels.launches["conv_lstm_cell_sm90"]
             == before["conv_lstm_cell_sm90"] + sm90)
+    assert (kernels.launches["conv_lstm_cell_f32"]
+            == before["conv_lstm_cell_f32"] + (dtype == torch.float32))
     assert all(bool(torch.isfinite(t).all()) for t in got)
     assert got[0].stride() == args[1].stride()
     _assert_cell_close(got, kernels.conv_lstm_cell_plain(*raw), dtype,
@@ -441,3 +458,90 @@ def test_gpu_variant_batched_plans_equal_single(cuda, name):
     model = get_model(cfg).init(cfg, 0, cuda)
     checks = plan_checks(CEMPolicy(cfg, model), repeats=2, batch_sizes=(2, 4))
     assert set(checks["batched"].values()) == {0.0}
+
+
+# ------------------------------------------------------------ float32 cell
+@pytest.mark.parametrize("channels", [256, 260])
+@pytest.mark.parametrize("k", [5, 3])
+@pytest.mark.parametrize("B", [16, 100, 200, 400])
+def test_gpu_f32_cell_matches_plain(cuda, monkeypatch, B, k, channels):
+    """The float32 kernel at the planner's cells (6x8, 256 channels; B = 16
+    the eval batch, 100 a request, 200 and 400 two and four planned
+    together) and det's (260 channels in padded views, NaN in the pad
+    lanes): one launch through it, equal to the plain version to 1e-4
+    with TF32 off, finite, in h's layout."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    raw = _cell_args(cuda, torch.float32, B, 6, 8, channels, channels, k,
+                     seed=B + k)
+    args = _det_layout(*raw) if channels % 8 else raw
+    before = dict(kernels.launches)
+    got = kernels.conv_lstm_cell(*args)
+    assert kernels.launches["conv_lstm_cell_f32"] == before["conv_lstm_cell_f32"] + 1
+    assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert got[0].stride() == args[1].stride()
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*raw), torch.float32,
+                       1e-4)
+
+
+@pytest.mark.parametrize("B,Cx,C,padded", [
+    (100, 258, 258, True),   # 258 channels on a 264 pixel stride: 8-byte copies
+    (16, 258, 258, False),   # 258 contiguous: 8-byte copies
+    (6, 13, 20, False),      # odd channels: 4-byte copies
+    (6, 13, 20, True),
+])
+@pytest.mark.parametrize("k", [5, 3])
+def test_gpu_f32_cell_narrow_copies_match_plain(cuda, monkeypatch, B, Cx, C,
+                                                padded, k):
+    """Channel counts that are not multiples of 4 take the kernel's 8- and
+    4-byte copies: equal to the plain version to 1e-4 (TF32 off)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    raw = _cell_args(cuda, torch.float32, B, 6, 8, Cx, C, k, seed=C)
+    args = _det_layout(*raw) if padded else raw
+    before = kernels.launches["conv_lstm_cell_f32"]
+    got = kernels.conv_lstm_cell(*args)
+    assert kernels.launches["conv_lstm_cell_f32"] == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*raw), torch.float32,
+                       1e-4)
+
+
+def _offset_copy(t, floats):
+    """t's values in a tensor whose storage starts `floats` float32 values
+    past an allocation's start: 16-byte aligned at 0, 8 at 2, 4 at 1."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    return buf[floats:floats + t.numel()].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("k", [5, 3])
+def test_gpu_f32_cell_bits_do_not_hang_on_the_copy_width(cuda, k):
+    """One cell at 256 channels, its x, h and w 16-byte aligned (16-byte
+    copies), 8-byte aligned (8-byte copies) and 4-byte aligned (4-byte
+    copies): the same bits, and both of its tile shapes the same bits."""
+    x, h, c, w, b = _cell_args(cuda, torch.float32, 100, 6, 8, 256, 256, k)
+    want = kernels.conv_lstm_cell(x, h, c, w, b)
+    for floats in (2, 1):
+        moved = [_offset_copy(t, floats) for t in (x, h, w)]
+        assert all(t.data_ptr() % 16 for t in moved)
+        got = kernels.conv_lstm_cell(moved[0], moved[1], c, moved[2], b)
+        assert all(torch.equal(g, v) for g, v in zip(got, want))
+    dims = kernels._check_cell(x, h, c, w, b)
+    for shape in (0, 1):
+        got = kernels.launch_f32(dims, x, h, c, w, b, shape)
+        assert all(torch.equal(g, v) for g, v in zip(got, want))
+
+
+def test_gpu_full_width_f32_plan_takes_the_f32_kernel(cuda, monkeypatch):
+    """The canonical planner (g_dim 256, N = 100, horizon 5, opt_iter 10)
+    with compute_dtype float32: a finite (4, 2) plan whose 160 cells all
+    launch the float32 kernel, none the wgmma/TMA one, and 10 masks."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = Config(**dict(CANONICAL, compute_dtype="float32"))
+    policy = CEMPolicy(cfg, svg.init(cfg, 0, cuda))
+    start, goal = start_goal(np.random.RandomState(0))
+    before = dict(kernels.launches)
+    plan = policy.get_action(start, goal, ep_num=1, step=0)
+    launched = {n: kernels.launches[n] - before[n] for n in before}
+    assert launched == plan_launches(cfg)
+    assert launched["conv_lstm_cell_f32"] == 160
+    assert plan.shape == (4, 2) and np.all(np.isfinite(plan))

@@ -200,11 +200,11 @@ def test_cell_wrapper_rejects_bad_weights():
     (torch.bfloat16, 24, 40, 0, True, None),    # a partial 64-channel tile
     (torch.bfloat16, 13, 20, 0, False, None),   # rows not a multiple of 16 bytes
     (torch.bfloat16, 16, 16, 1, False, None),   # x not 16-byte aligned
-    (torch.float32, 256, 256, 0, False, None),  # float32 keeps the CUDA-core kernel
+    (torch.float32, 256, 256, 0, False, None),  # float32: the float32 kernel
     (torch.bfloat16, 260, 260, 0, True, 264),   # det: padded views
     (torch.bfloat16, 258, 258, 0, True, 264),   # det without robot state
     (torch.bfloat16, 260, 260, 0, False, None), # contiguous 260: 520-byte rows
-    (torch.float32, 260, 260, 0, False, 264),   # float32 det: the CUDA-core kernel
+    (torch.float32, 260, 260, 0, False, 264),   # float32 det: the float32 kernel
     (torch.bfloat16, 13, 13, 0, False, 16),     # an odd channel count
     (torch.bfloat16, 260, 260, 0, False, 262),  # a pixel stride of 262
 ])

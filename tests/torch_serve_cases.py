@@ -58,23 +58,25 @@ def _same(a, b):
 
 
 def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
-                    fn=None, channels=256):
+                    fn=None, channels=256, dtype=torch.bfloat16):
     """For each k: `repeats` launches of identical inputs at each B give
     identical bits; the rows of a B = 100 launch equal the same rows placed
     at offsets 0 and 100 of B = 200 launches and 0, 100, 200 and 300 of
     B = 400 launches whose other rows are different; and the first 16 rows
     equal a B = 16 launch of them; Cx = C = `channels` (det's 260: padded
-    views, the layout det gives its cells). Raises
+    views, the layout det gives its cells), in `dtype`. Raises
     on the first difference. `fn` is the cell wrapper (default
     kernels.conv_lstm_cell, which must take the wgmma/TMA kernel at these
-    shapes). Returns {"k=5": {...}, ...} with what was compared."""
+    shapes in bf16 and the float32 kernel in float32). Returns
+    {"k=5": {...}, ...} with what was compared."""
     fn = fn or kernels.conv_lstm_cell
     out = {}
     C = channels
     for k in ks:
-        w, b = cell_weights(k, dev, Cx=C, C=C)
-        rows = cell_rows(max(batches), dev, Cx=C, C=C, seed=k)
-        if fn is kernels.conv_lstm_cell and not kernels.takes_sm90(*rows, w):
+        w, b = cell_weights(k, dev, dtype, Cx=C, C=C)
+        rows = cell_rows(max(batches), dev, dtype, Cx=C, C=C, seed=k)
+        if (fn is kernels.conv_lstm_cell and dtype == torch.bfloat16
+                and not kernels.takes_sm90(*rows, w)):
             raise AssertionError("the planner's cell does not take sm90")
         ref = {}
         for B in batches:
@@ -85,11 +87,11 @@ def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
                     raise AssertionError(f"k={k} B={B}: launch {i + 2} of "
                                          "identical inputs differs")
             ref[B] = first
-        base = cell_rows(100, dev, Cx=C, C=C, seed=10 + k)
+        base = cell_rows(100, dev, dtype, Cx=C, C=C, seed=10 + k)
         want = fn(*base, w, b)
         for B, offsets in OFFSETS.items():
             for o in offsets:
-                big = cell_rows(B, dev, Cx=C, C=C, seed=20 + k + o + B)
+                big = cell_rows(B, dev, dtype, Cx=C, C=C, seed=20 + k + o + B)
                 for t, r in zip(big, base):
                     t[o:o + 100] = r
                 got = fn(*big, w, b)
@@ -102,7 +104,7 @@ def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
             raise AssertionError(f"k={k}: B = 16 differs from the same rows "
                                  "at B = 100")
         out[f"k={k}"] = dict(repeats=repeats, batches=list(batches),
-                             channels=C,
+                             channels=C, dtype=str(dtype),
                              offsets={str(B): list(o)
                                       for B, o in OFFSETS.items()},
                              identical=True)
@@ -110,17 +112,18 @@ def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
 
 
 def small_cell_invariance(dev):
-    """The same properties for the kernels of csrc/conv_lstm_cell.cu (WMMA
-    in bf16 for channel counts TMA cannot take, CUDA cores in float32), at
-    small shapes: 10 repeats, rows at offsets 0 and 5 of a launch of 3x the
-    rows. Returns the checked paths."""
+    """The same properties for the WMMA kernel of csrc/conv_lstm_cell.cu
+    (bf16 at channel counts TMA cannot take) and the float32 kernel of
+    csrc/conv_lstm_cell_f32.cu, at small shapes: 10 repeats, rows at
+    offsets 0 and 5 of a launch of 3x the rows. Returns the checked
+    paths."""
     done = []
     for dtype, Cx, C in ((torch.bfloat16, 13, 20), (torch.float32, 16, 24)):
         for k in (5, 3):
             w, b = cell_weights(k, dev, dtype, Cx, C)
             base = cell_rows(5, dev, dtype, Cx=Cx, C=C, seed=k)
             if kernels.takes_sm90(*base, w):
-                raise AssertionError("expected the conv_lstm_cell.cu path")
+                raise AssertionError("expected the WMMA or float32 kernel")
             want = kernels.conv_lstm_cell(*base, w, b)
             for _ in range(9):
                 if not _same(kernels.conv_lstm_cell(*base, w, b), want):

@@ -189,7 +189,8 @@ def train_step_parity(dev="cuda", **variant):
     # nothing else launches a kernel
     cells = cells_per_step(cfg) * (cfg.n_eval - 1)
     want = {"cpu": ({}, {}),
-            str(dev): ({}, {"conv_lstm_cell": cells} if cells else {})}
+            str(dev): ({}, {"conv_lstm_cell": cells,
+                            "conv_lstm_cell_f32": cells} if cells else {})}
     ok = (errs["grads_norm"] <= GRAD_TOL_DEVICES
           and all(v <= TRAIN_TOL for k, v in errs.items()
                   if not k.startswith("grads"))
@@ -263,7 +264,7 @@ def eval_kernel_vs_plain(dev="cuda"):
                 "metrics": max(max_rel(m1[k], m0[k]) for k in m0)}
         result[mode] = dict(launched=launched, **errs)
         if launched != {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
-                        "capsule_mask_render": 0}:
+                        "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}:
             raise AssertionError(f"eval step {mode} launched {launched}, "
                                  f"expected {cells} cells, all through sm90")
         if not (max(errs.values()) <= EVAL_TOL

@@ -81,15 +81,17 @@ def plan_launches(cfg: Config) -> dict:
     GroupNorm cells; bf16 cells through the wgmma/TMA kernel: svg's of
     g_dim channels where that is a multiple of 8, det's of any even count
     (g_dim + 2 + 2 = 260 at the canonical config) in views of padded
-    buffers; one mask render an iteration."""
+    buffers; float32 cells all through the float32 kernel; one mask render
+    an iteration."""
     steps = (cfg.horizon - 1) * cfg.opt_iter
     cells = 0 if cfg.lstm_group_norm else (2 if cfg.model == "det" else 4) * steps
     det_channels = cfg.g_dim + 2 + (2 if cfg.model_use_robot_state else 0)
     sm90 = cells if cfg.compute_dtype == "bfloat16" and (
         cfg.g_dim % 8 == 0 if cfg.model == "svg" else det_channels % 2 == 0
     ) else 0
+    f32 = cells if cfg.compute_dtype == "float32" else 0
     return {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": sm90,
-            "capsule_mask_render": cfg.opt_iter}
+            "conv_lstm_cell_f32": f32, "capsule_mask_render": cfg.opt_iter}
 
 
 def start_goal(rng, h=48, w=64):
