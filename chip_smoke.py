@@ -51,8 +51,9 @@ Phases, each of which raises on failure:
                 launched, one profiled step), the step's FLOP count and
                 bound; then PredictionTrainer at full width on the
                 synthetic experiment: it trains, runs its eval epoch
-                through the wgmma/TMA cell kernel (launches counted),
-                writes a checkpoint, and a second trainer resumes from it;
+                through the wgmma/TMA cell kernel and its eval gif's
+                rollout (launches counted), writes a checkpoint, and a
+                second trainer resumes from it;
   9. kernels    per kernel: launches in phase 6 (the cell at det's shapes:
                 in phase 11's det plans), device time per launch
                 (CUDA events) at the planner's shapes, its plain version's
@@ -125,9 +126,28 @@ Phases, each of which raises on failure:
                 a det trainer whose eval epoch runs its cells through sm90
                 (launches counted), and a second loading its checkpoint
                 through --dynamics_model_ckpt and training on from its step.
+ 12. data       the data path (data/, training/trainer.py): the port's C++
+                resize built with c++ and held against a float64 bilinear
+                reference at 64x85 -> 48x64 (1e-5), with its host time a
+                frame; whether h5py, cv2 and imageio import here, and the
+                HDF5 reader's resize route; record shards of 512 train
+                episodes (8 shards of 64) and 32 test episodes
+                (data/synthetic.py, 31 frames at 48x64, masks, states,
+                actions, qpos) written with numpy alone; a shuffled epoch
+                of DataLoader(RecordDataset) with 5 threads timed on the
+                host, each shard decoded once; another of 8 batches of 64
+                through device_prefetch equal to the host batches bit for
+                bit while the consumer's stream sleeps before each read;
+                PredictionTrainer at the training
+                config of bench.py:136-156 (batch 128, window 6, bf16,
+                remat conv) fed by those loaders: niter 1, epoch_size 2,
+                its eval epoch and eval gif through sm90 (launches
+                counted), a checkpoint and a resume; frames/s and the
+                share of the epoch spent waiting in next(train_iter),
+                beside the synthetic trainer's at the same batch.
 
-Prints the card line, one JSON line each of the train, serve and variants
-phases and one of kernels (the mask kernel, the sm90 cell at the planner's
+Prints the card line, one JSON line each of the train, serve, variants
+and data phases and one of kernels (the mask kernel, the sm90 cell at the planner's
 shapes and at det's, the WMMA kernel and the float32 kernel, each with its
 launches on its own path), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -135,6 +155,7 @@ launches on its own path), then, as the last line,
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
@@ -152,6 +173,9 @@ from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.control.plan_server import PlanServer
+from robot_aware_control_tpu_torch.data import native, robonet_hdf5
+from robot_aware_control_tpu_torch.data.loader import DataLoader
+from robot_aware_control_tpu_torch.data.records import RecordDataset
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.planning.cost import InpaintBlurCost, gaussian_blur
 from robot_aware_control_tpu_torch.training import checkpoint as ckpt
@@ -177,6 +201,14 @@ from torch_train_small import (  # noqa: E402
     bench_batch,
     eval_kernel_vs_plain,
     train_step_parity,
+)
+from torch_data_cases import (  # noqa: E402
+    RESIZE_TOL,
+    RecordTrainer,
+    bilinear_reference,
+    eval_cells,
+    prefetch_check,
+    write_record_split,
 )
 from torch_variant_cases import (  # noqa: E402
     CANONICAL,
@@ -849,9 +881,9 @@ def check_trainer():
         tr.train()
         seconds = time.perf_counter() - t0
         launched = dict(kernels.launches)
-        eval_batches = 2  # the synthetic test set, cfg.eval_batches = 0
-        cells = (6 * (cfg.n_eval - 1) * (cfg.video_length // cfg.n_eval) * 2
-                 * eval_batches)
+        # the synthetic test set's 2 batches (cfg.eval_batches = 0), then
+        # the eval gif's rollout
+        cells = eval_cells(cfg, 2)
         if launched != {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
                         "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}:
             raise AssertionError(f"trainer launched {launched}, expected "
@@ -881,8 +913,8 @@ def check_trainer():
                autoreg_ssim=ev["eval/autoreg_ssim"])
     print(f"trainer: {out['steps']} steps and an eval epoch in {seconds:.1f} s "
           f"({out['frames_per_s']:.1f} frames/s over the epoch, data "
-          f"generation included), {cells} cell launches in the eval epoch, "
-          f"all through sm90; wrote {out['checkpoint']}, resumed at step "
+          f"generation included), {cells} cell launches in the eval epoch "
+          f"and its gif, all through sm90; wrote {out['checkpoint']}, resumed at step "
           f"{tr2._step}; loss {out['loss']:.4f}, autoregressive PSNR "
           f"{out['autoreg_psnr']:.2f}, SSIM {out['autoreg_ssim']:.4f}")
     return out
@@ -1253,8 +1285,8 @@ def check_copy_and_resume():
         kernels.reset_launches()
         first.train()
         det_eval = dict(kernels.launches)
-        cells = (2 * (base["n_eval"] - 1) * (base["video_length"] // base["n_eval"])
-                 * 2 * 2)  # 1-step and autoregressive, 2 test batches
+        # 1-step and autoregressive over 2 test batches, then the eval gif
+        cells = eval_cells(first.cfg, 2, cells_a_step=2)
         if det_eval != {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
                         "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}:
             raise AssertionError(f"det trainer's eval epoch launched "
@@ -1329,6 +1361,137 @@ def check_variants(dev):
     out["trainer"] = check_copy_and_resume()
     det_entries[0]["launches_trainer_eval"] = out["trainer"]["det_eval_sm90"]
     return out, det_entries
+
+
+# ------------------------------------------------------------------ data
+def check_resize():
+    """The port's C++ resize, built here with c++, against the float64
+    bilinear reference at RoboNet's stored 64x85 to the model's 48x64, and
+    its host time a frame (median of 5 calls of 310 frames)."""
+    t0 = time.perf_counter()
+    if not native.available():
+        native.bilinear_resize(np.zeros((2, 2), np.float32), 1, 1)  # raises
+    build_s = time.perf_counter() - t0
+    imgs = np.random.RandomState(0).rand(310, 64, 85, 3).astype(np.float32)
+    out = native.bilinear_resize_batch(imgs, 64, 48)
+    err = max(float(np.abs(o - bilinear_reference(i, 64, 48)).max())
+              for o, i in zip(out, imgs))
+    if not err < RESIZE_TOL:
+        raise AssertionError(f"native resize off the float64 reference by {err}")
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        native.bilinear_resize_batch(imgs, 64, 48)
+        times.append(time.perf_counter() - t)
+    ms = statistics.median(times) / len(imgs) * 1e3
+    print(f"native resize (c++ build {build_s:.2f} s): 64x85x3 -> 48x64, max "
+          f"|diff| from float64 {err:.3g} (tolerance {RESIZE_TOL}), "
+          f"{ms:.4f} ms a frame on the host")
+    return dict(build_s=build_s, max_abs_err=err, host_ms_per_frame=ms)
+
+
+def check_data(dev):
+    """Phase 12 (see the module docstring). Returns its JSON line's dict
+    and the records-fed trainer's sm90 cell launches."""
+    out = {"resize": check_resize()}
+    out["imports"] = {m: importlib.util.find_spec(m) is not None
+                      for m in ("h5py", "cv2", "imageio")}
+    out["resize_route"] = robonet_hdf5.resize_route()
+    print(f"importable here: {out['imports']}; the HDF5 reader's resize "
+          f"route: {out['resize_route']}")
+    cfg = Config(**dict(TRAIN, batch_size=128, test_batch_size=16,
+                        video_length=31, n_eval=10, niter=1, epoch_size=2,
+                        eval_interval=1, checkpoint_interval=1,
+                        data_threads=5, jobname="records"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        t = time.perf_counter()
+        # 8 shards of 64 episodes: a shuffled epoch reads every shard in
+        # every batch
+        shards = write_record_split(os.path.join(d, "train"),
+                                    4 * cfg.batch_size, cfg, 0)
+        write_record_split(os.path.join(d, "test"), 32, cfg, 1)
+        out["write_s"] = time.perf_counter() - t
+        train = RecordDataset(os.path.join(d, "train"))
+        loader = DataLoader(train, cfg.batch_size, num_workers=cfg.data_threads,
+                            seed=cfg.seed)
+        t = time.perf_counter()
+        n = sum(b["images"].shape[1] for b in loader)
+        out["loader_episodes_per_s"] = n / (time.perf_counter() - t)
+        out["shards"] = len(shards)
+        out["shard_decodes"] = train.decodes
+        if train.decodes != len(shards):
+            raise AssertionError(f"{train.decodes} decodes of {len(shards)} "
+                                 "shards in one epoch")
+        # 8 batches of 64 through 2 staged ones: later copies land in
+        # memory that the allocator freed from earlier batches
+        pf = prefetch_check(DataLoader(train, 64, num_workers=cfg.data_threads,
+                                       seed=cfg.seed), dev)
+        if pf["mismatched"] or pf["batches"] != 8:
+            raise AssertionError(f"prefetched batches differ from the host's: {pf}")
+        out["prefetch"] = pf
+        print(f"record shards: {len(train)} train episodes in {len(shards)} "
+              f"shards and 32 test episodes of {cfg.video_length} frames "
+              f"written in {out['write_s']:.1f} s; the loader "
+              f"({cfg.data_threads} threads) {out['loader_episodes_per_s']:.1f} "
+              f"episodes/s on the host, {train.decodes} shard decodes in a "
+              f"shuffled epoch; device_prefetch: {pf['batches']} batches of 64 "
+              f"equal to the host's bit for bit ({', '.join(pf['keys'])})")
+        tr = RecordTrainer(cfg.replace(log_dir=d), d)
+        kernels.reset_launches()
+        tr.train()
+        launched = dict(kernels.launches)
+        cells = eval_cells(cfg, 32 // cfg.test_batch_size)
+        if launched != {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
+                        "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}:
+            raise AssertionError(f"records trainer launched {launched}, "
+                                 f"expected {cells} cells, all through sm90")
+        with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train_rec = next(r for r in recs if "train/loss" in r)
+        ev = next(r for r in recs if "eval/autoreg_psnr" in r)
+        if not all(np.isfinite(v) for r in (train_rec, ev) for v in r.values()):
+            raise AssertionError(f"non-finite trainer metrics {train_rec} {ev}")
+        path = ckpt.latest_checkpoint(tr.log_dir)
+        windows = cfg.epoch_size * (cfg.video_length // 6)
+        if tr._step != windows or not path.endswith(f"ckpt_{windows}.npz"):
+            raise AssertionError(f"records trainer at step {tr._step}, saved {path}")
+        tr.logger.close()
+        tr2 = RecordTrainer(cfg.replace(log_dir=d), d)
+        tr2._resume()
+        tr2.logger.close()
+        if tr2._step != tr._step:
+            raise AssertionError(f"resumed at {tr2._step}, saved {tr._step}")
+        syn = PredictionTrainer(cfg.replace(experiment="synthetic", log_dir=d,
+                                            jobname="synthetic",
+                                            eval_interval=10,
+                                            checkpoint_interval=10))
+        syn.train()
+        with open(os.path.join(syn.log_dir, "metrics.jsonl")) as f:
+            syn_fps = next(json.loads(line) for line in f
+                           if "train/loss" in line)["train/frames_per_sec"]
+        syn.logger.close()
+    epoch = tr.last_epoch
+    out["trainer"] = dict(
+        frames_per_s=train_rec["train/frames_per_sec"],
+        epoch_s=epoch["seconds"], data_wait_s=epoch["data_wait_s"],
+        data_wait_share=epoch["data_wait_s"] / epoch["seconds"],
+        steps=tr._step, resumed_step=tr2._step,
+        cell_launches=launched["conv_lstm_cell"],
+        sm90_launches=launched["conv_lstm_cell_sm90"],
+        loss=train_rec["train/loss"], autoreg_psnr=ev["eval/autoreg_psnr"],
+        synthetic_frames_per_s=syn_fps,
+        synthetic_wait_share=syn.last_epoch["data_wait_s"] / syn.last_epoch["seconds"])
+    print(f"records trainer (batch {cfg.batch_size}, {cfg.data_threads} loader "
+          f"threads): {out['trainer']['frames_per_s']:.1f} frames/s over the "
+          f"epoch, waiting {out['trainer']['data_wait_share']:.1%} of it in "
+          f"next(train_iter); synthetic trainer at the same batch "
+          f"{syn_fps:.1f} frames/s (waiting "
+          f"{out['trainer']['synthetic_wait_share']:.1%}); "
+          f"{out['trainer']['sm90_launches']} cell launches "
+          f"in its eval epoch and gif, all through sm90; resumed at step "
+          f"{tr2._step}; loss {out['trainer']['loss']:.4f}")
+    return out, launched["conv_lstm_cell_sm90"]
 
 
 def main() -> int:
@@ -1409,6 +1572,12 @@ def main() -> int:
         entry["launches_variants"] = {
             v: r["launches"][name] for v, r in variants["plans"].items()}
     print(json.dumps({"variants": dict(variants, card=card)}))
+
+    # the data path: host resize, record shards, prefetch, the trainer on them
+    phase("data")
+    data, data_cells = check_data(dev)
+    line["kernels"][1]["launches_data_trainer"] = data_cells
+    print(json.dumps({"data": dict(data, card=card)}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

@@ -2,7 +2,7 @@
 
 A copy of the fields of `robot_aware_control_tpu.config.Config` that the
 port reads (the CEM planner and its server, the controller, the train and
-eval steps and the trainer),
+eval steps, the data loaders and the trainer),
 with the same names and defaults, so a config written for one package
 means the same thing in the other; and a copy of its argparse front end
 (`create_parser`, `argparser`), so the port's trainer takes the same
@@ -92,9 +92,26 @@ class Config:
     posterior_use_current_frame: bool = False
 
     # --- dataset ---
+    data_threads: int = 5
+    data_root: str = "data"
+    train_val_split: float = 0.8
+    video_type: str = "object_inpaint_demo"
     video_length: int = 31
+    impute_autograsp_action: bool = True
+    preload_ram: bool = False
+    preprocess_action: str = "raw"  # raw|camera_raw|state_infer|camera_state_infer
+    img_augmentation: bool = False
+    color_jitter_range: float = 0.1
+    random_crop_size: int = 59
+    # a {file path: high movement} pickle (evaluation/obj_movement.py)
+    world_error_dict: Optional[str] = None
+    finetune_num_train: int = 400
+    finetune_num_test: int = 100
     random_snippet: bool = True
+    load_movement_info: bool = False
     movement_weight: float = 1.0
+    # runner demos (data/demo_io.py) that the demo-video loaders read
+    demo_dir: str = "demos/fetch_push"
 
     # --- planner ---
     # weighted|dense|inpaint|sparse|blackrobot|inpaint-blur|eef_inpaint|dontcare

@@ -1,0 +1,135 @@
+"""Packed record shards: preprocessed episodes in fixed-shape npz shards
+(counterpart of `robot_aware_control_tpu/data/records.py`; reference:
+robonet/robonet/datasets/util/hdf5_2_records.py, record_dataset.py).
+
+Each trajectory is decoded and preprocessed once (resize, normalization,
+autograsp: the HDF5 reader's semantics), and many episodes are packed into
+compressed `shard_<i>.npz` files, each with a `.json` list of its episodes'
+robot, folder and file path. Reading them needs numpy alone, so this is the
+data route on a machine without h5py; shards written by either package
+read in the other.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import threading
+from collections import OrderedDict
+from typing import Dict, Iterable, List, Optional
+
+import numpy as np
+
+from robot_aware_control_tpu_torch.config import Config
+
+_KEYS = ("images", "states", "actions", "masks", "qpos")
+
+
+def write_records(items: Iterable[dict], out_dir: str, video_length: int,
+                  episodes_per_shard: int = 64) -> List[str]:
+    """Packs episode dicts (the HDF5 reader's items: `_KEYS` arrays, robot,
+    folder, file_path) into shards, each episode cut to `video_length`
+    frames. Returns the shard paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    shards: List[str] = []
+    buf: Dict[str, list] = {k: [] for k in _KEYS}
+    metas: List[dict] = []
+
+    def flush():
+        path = os.path.join(out_dir, f"shard_{len(shards):05d}.npz")
+        np.savez_compressed(path, **{k: np.stack(v) for k, v in buf.items() if v})
+        with open(path + ".json", "w") as f:
+            json.dump(metas, f)
+        shards.append(path)
+        for v in buf.values():
+            v.clear()
+        metas.clear()
+
+    for item in items:
+        for k in _KEYS:
+            n = video_length - 1 if k == "actions" else video_length
+            buf[k].append(np.asarray(item[k])[:n])
+        metas.append({"robot": item["robot"], "folder": item["folder"],
+                      "file_path": item["file_path"]})
+        if len(metas) >= episodes_per_shard:
+            flush()
+    if metas:
+        flush()
+    return shards
+
+
+def convert_to_records(config: Config, hdf5_files: List[str],
+                       robot_viewpoints: List[str], out_dir: str,
+                       episodes_per_shard: int = 64) -> List[str]:
+    """Preprocesses HDF5 trajectories with the reader and packs them into
+    shards; episodes are cut to config.video_length frames."""
+    from robot_aware_control_tpu_torch.data.robonet_hdf5 import RoboNetHDF5Dataset
+
+    ds = RoboNetHDF5Dataset(hdf5_files, robot_viewpoints, config)
+    return write_records((ds[i] for i in range(len(ds))), out_dir,
+                         config.video_length, episodes_per_shard)
+
+
+class RecordDataset:
+    """Shard-backed dataset with the loader's __getitem__/__len__ contract
+    (reference: record_dataset.py).
+
+    Decoded shards stay in memory, the least recently used dropped first
+    once they hold more than `cache_bytes` (the newest is always kept), so
+    a shuffled epoch over a tree that fits decodes each shard once. The
+    loader's worker threads share the cache: a shard is decoded by one
+    thread under its own lock while others decode other shards (zlib
+    releases the GIL), and `decodes` counts the shard decodes."""
+
+    def __init__(self, shard_dir: str, config: Optional[Config] = None,
+                 cache_bytes: int = 8 << 30):
+        self.paths = sorted(glob.glob(os.path.join(shard_dir, "shard_*.npz")))
+        if not self.paths:
+            raise FileNotFoundError(f"no shards under {shard_dir}")
+        self._meta = []
+        self._index = []  # (shard_idx, episode_idx)
+        for si, p in enumerate(self.paths):
+            with open(p + ".json") as f:
+                metas = json.load(f)
+            self._meta.append(metas)
+            self._index.extend((si, ei) for ei in range(len(metas)))
+        self.cache_bytes = cache_bytes
+        self.decodes = 0
+        self._cache: "OrderedDict[int, Dict[str, np.ndarray]]" = OrderedDict()
+        self._cached_bytes = 0
+        self._lock = threading.Lock()  # the cache and the counts
+        self._shard_locks = [threading.Lock() for _ in self.paths]
+
+    def __len__(self):
+        return len(self._index)
+
+    def _shard(self, si: int):
+        with self._shard_locks[si]:
+            with self._lock:
+                shard = self._cache.get(si)
+                if shard is not None:
+                    self._cache.move_to_end(si)
+                    return shard
+            with np.load(self.paths[si]) as z:
+                shard = {k: z[k] for k in z.files}
+            with self._lock:
+                self.decodes += 1
+                self._cache[si] = shard
+                self._cached_bytes += _nbytes(shard)
+                while self._cached_bytes > self.cache_bytes and len(self._cache) > 1:
+                    _, old = self._cache.popitem(last=False)
+                    self._cached_bytes -= _nbytes(old)
+            return shard
+
+    def __getitem__(self, idx: int) -> dict:
+        si, ei = self._index[idx]
+        shard = self._shard(si)
+        out = {k: shard[k][ei] for k in shard}
+        out.update(self._meta[si][ei])
+        out["idx"] = idx
+        return out
+
+
+def _nbytes(shard: Dict[str, np.ndarray]) -> int:
+    return sum(v.nbytes for v in shard.values())

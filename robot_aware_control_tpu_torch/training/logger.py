@@ -1,8 +1,8 @@
 """Run logging: console, `<log dir>/log.txt` and JSONL metrics in
 `<log dir>/metrics.jsonl` (counterpart of
 `robot_aware_control_tpu/training/logger.py:19-83`; reference:
-src/prediction/trainer.py:70-84, 767, 1411-1461). wandb and the HTML
-report are not ported yet."""
+src/prediction/trainer.py:70-84, 767, 1411-1461); `close` renders the
+run's `report.html` (training/html_report.py). wandb is not ported."""
 
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ import logging
 import os
 import time
 from typing import Dict, Optional
+
+from robot_aware_control_tpu_torch.training.html_report import build_report
 
 
 def make_log_folder(cfg) -> str:
@@ -54,11 +56,23 @@ class RunLogger:
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
 
+    def video(self, path: str, step: int, key: str = "video"):
+        """Records a saved gif's path under `key` (reference: trainer.py:
+        1143-1147 logs gif videos to wandb)."""
+        self._jsonl.write(json.dumps({key: path, "step": step}) + "\n")
+        self._jsonl.flush()
+
     def info(self, msg: str):
         self.log.info(msg)
 
     def close(self):
+        """Closes the files and writes report.html (a failed write is
+        logged, not raised: the run's results are already on disk)."""
         self._jsonl.close()
+        try:
+            build_report(self.dir)
+        except OSError as e:
+            self.log.warning(f"html report skipped ({e})")
         for handler in self._handlers:
             self.log.removeHandler(handler)
             handler.close()

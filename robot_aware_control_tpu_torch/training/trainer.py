@@ -5,11 +5,19 @@ src/prediction/trainer.py:53-1471).
     python -m robot_aware_control_tpu_torch.training.trainer \\
         --experiment synthetic --device cuda [--flags of config.py]
 
-The loop of the JAX trainer, for svg and det on the synthetic experiment:
+The loop of the JAX trainer, for svg and det:
+  * the experiment's loaders (trainer.py:178-238): `synthetic`, the
+    RoboNet, sawyer and locobot view-directory experiments, and any other
+    name over every HDF5 under --data_root (data/loader.py), with the
+    zero-shot transfer loaders of train_robonet, train_sawyer_multiview
+    and the default experiment;
   * niter epochs x epoch_size batches (trainer.py:753-768), each batch a
     video of video_length frames sliced into floor(T / window) train
     windows, at random offsets with random_snippet (trainer.py:259-283);
-    one whole-window train step each (training/step.py);
+    one whole-window train step each (training/step.py); the batches come
+    through `device_prefetch`, copied to the GPU while the previous one
+    computes, and --load_movement_info's labels weight the loss by
+    --movement_weight;
   * the scheduled-sampling probability k / (k + e^(step/k)) per optimizer
     step (trainer.py:132-147);
   * epoch metrics kept on the device and synced once per epoch, with
@@ -18,23 +26,25 @@ The loop of the JAX trainer, for svg and det on the synthetic experiment:
     newest one (trainer.py:770-772, 829-897);
   * an eval epoch every eval_interval epochs: 1-step and autoregressive
     passes over n_eval windows (trainer.py:491-563), whose cells run the
-    hand kernel;
+    hand kernel, then one over the transfer loader (logged under
+    transfer/), then an autoregressive rollout of the first test batch
+    written as `eval_<epoch>.gif` (trainer.py:437-453, 557-563);
   * --dynamics_model_ckpt loaded before auto-resume (trainer.py:502-505);
   * --model copy: the parameter-free copy baseline's metrics over full
-    train and test epochs instead of training (trainer.py:569-598).
+    train, test and transfer epochs instead of training, with a rollout
+    gif of each split (trainer.py:569-598).
 
-Not ported yet, and raising where they are read: the HDF5/RoboNet loaders
-(experiments other than synthetic), the finetune_* experiments and their
-robot models, the models other than svg, det and copy, sharded
-checkpoints. The synthetic data carries no heatmaps, so heatmap-conditioned
-models raise on it, as the JAX trainer fails. Not ported: mesh sharding,
-transfer loaders, eval gifs and plots (the copy baseline's included),
-wandb.
+Not ported yet, and raising where they are read: the finetune_*
+experiments and their robot models, the models other than svg, det and
+copy, sharded checkpoints, public-RoboNet raw files. The synthetic data
+carries no heatmaps, so heatmap-conditioned models raise on it, as the JAX
+trainer fails. Not ported: mesh sharding, wandb.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -44,10 +54,13 @@ import torch
 
 from robot_aware_control_tpu_torch import convert
 from robot_aware_control_tpu_torch.config import Config, argparser
+from robot_aware_control_tpu_torch.data import loader as data_loader
+from robot_aware_control_tpu_torch.data.loader import device_batch, device_prefetch
 from robot_aware_control_tpu_torch.data.synthetic import SyntheticDataset
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.training import checkpoint as ckpt
 from robot_aware_control_tpu_torch.training.logger import RunLogger, make_log_folder
+from robot_aware_control_tpu_torch.training.plot import eval_gif
 from robot_aware_control_tpu_torch.training.step import (
     make_copy_eval_step,
     make_eval_step,
@@ -55,7 +68,7 @@ from robot_aware_control_tpu_torch.training.step import (
 )
 from robot_aware_control_tpu_torch.utils.device import resolve_device
 
-_WINDOW_KEYS = ("images", "masks", "states")
+_WINDOW_KEYS = ("images", "masks", "states", "qpos", "heatmaps")
 
 
 class PredictionTrainer:
@@ -76,6 +89,9 @@ class PredictionTrainer:
         self._start_epoch = 0
         self._video_rng = np.random.RandomState(cfg.seed)
         self._generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        self.transfer_loader = None
+        # the last epoch's seconds and the seconds it waited for batches
+        self.last_epoch = None
         if cfg.model == "copy":
             # no parameters: eval steps with the learned models' metric keys
             self.model = self.optimizer = self.train_step = None
@@ -89,9 +105,10 @@ class PredictionTrainer:
 
     # ------------------------------------------------------------------
     def _setup_data(self):
-        """The experiment's loaders (trainer.py:899-947); the port has the
-        synthetic experiment."""
+        """The experiment's train and test loaders, and its transfer loader
+        in self.transfer_loader (trainer.py:178-238)."""
         cfg = self.cfg
+        self.transfer_loader = None
         if cfg.experiment == "synthetic" or cfg.dataset == "synthetic":
             if cfg.model_use_heatmap:
                 # the JAX step fails on such batches (svg.py:341-348 would
@@ -105,9 +122,38 @@ class PredictionTrainer:
             test = SyntheticDataset(cfg, cfg.test_batch_size,
                                     seed=cfg.seed + 1, num_batches=2)
             return train, test
-        raise NotImplementedError(
-            f"experiment {cfg.experiment!r}: the HDF5/RoboNet loaders are "
-            "not ported yet (use --experiment synthetic)")
+        exp = cfg.experiment
+        if exp == "train_robonet":
+            # zero-shot transfer measured on locobot, a robot absent from
+            # the robonet training mix (trainer.py:903-913)
+            self.transfer_loader = self._try_transfer(
+                data_loader.create_locobot_transfer_loader)
+            return data_loader.create_robonet_loaders(cfg)
+        if exp == "train_sawyer_multiview":
+            # zero-shot transfer on the held-out sudri2_c1 viewpoint
+            # (trainer.py:915-925)
+            self.transfer_loader = self._try_transfer(
+                data_loader.create_sawyer_transfer_loader)
+            return data_loader.create_sawyer_loaders(cfg)
+        factory = {
+            "train_locobot_singleview": data_loader.create_locobot_loaders,
+            "train_locobot_table": data_loader.create_locobot_table_loaders,
+            "train_locobot_pick": data_loader.create_locobot_pick_loaders,
+        }.get(exp)
+        if factory is not None:
+            return factory(cfg)
+        train, test = data_loader.create_loaders(cfg)
+        self.transfer_loader = self._try_transfer(
+            data_loader.create_transfer_loader)
+        return train, test
+
+    def _try_transfer(self, factory):
+        try:
+            return factory(self.cfg)
+        except FileNotFoundError:
+            self.logger.info(f"no transfer data for {factory.__name__}; "
+                             "skipping transfer eval")
+            return None
 
     def _sched_prob(self) -> float:
         """Probability of feeding ground truth (trainer.py:132-139)."""
@@ -116,32 +162,33 @@ class PredictionTrainer:
         k = float(self.cfg.scheduled_sampling_k)
         return k / (k + float(np.exp(min(self._step / k, 50.0))))
 
-    def _device_video(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """The video's arrays on the device, uploaded once for all its
-        windows."""
-        out = {k: torch.as_tensor(batch[k]) for k in _WINDOW_KEYS + ("actions",)}
+    def _video(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """The tensors of a device batch that the steps read: the frames,
+        masks, states, heatmaps and actions (qpos is read by no step), and
+        the movement labels as loss weights (trainer.py:336-352)."""
+        out = {k: batch[k] for k in _WINDOW_KEYS + ("actions",)
+               if k in batch and k != "qpos"}
         if "high_movement" in batch:
-            out["batch_weight"] = torch.as_tensor(np.where(
-                np.asarray(batch["high_movement"]), self.cfg.movement_weight,
-                1.0).astype(np.float32))
-        return {k: v.to(self.device, non_blocking=True) for k, v in out.items()}
+            out["batch_weight"] = torch.where(
+                batch["high_movement"], self.cfg.movement_weight, 1.0
+            ).to(torch.float32)
+        return out
 
     @staticmethod
     def _window(video: Dict, s: int, e: int) -> Dict[str, torch.Tensor]:
-        out = {k: (video[k][s:e] if k in _WINDOW_KEYS
-                   else video[k][s:e - 1] if k == "actions" else video[k])
-               for k in video}
-        return out
+        return {k: (video[k][s:e] if k in _WINDOW_KEYS
+                    else video[k][s:e - 1] if k == "actions" else video[k])
+                for k in video}
 
     # ------------------------------------------------------------------
     def _train_video(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """Slice a video batch into train windows and take one step each
+        """Slice a device batch into train windows and take one step each
         (trainer.py:259-324). Metrics stay on the device."""
         cfg = self.cfg
         T = len(batch["images"])
         window = cfg.n_past + cfg.n_future
         num = max(T // window, 1)
-        video = self._device_video(batch)
+        video = self._video(batch)
         agg = {}
         for i in range(num):
             if cfg.random_snippet and T > window:
@@ -156,12 +203,13 @@ class PredictionTrainer:
         return agg
 
     def _eval_video(self, batch: Dict, autoregressive=True) -> Dict[str, float]:
-        """Eval over n_eval windows (trainer.py:491-563), synced once."""
+        """Eval of a device batch over n_eval windows (trainer.py:491-563),
+        synced once."""
         T = len(batch["images"])
         window = self.cfg.n_eval
         num = max(T // window, 1)
         step_fn = self.eval_step_ar if autoregressive else self.eval_step_1
-        video = self._device_video(batch)
+        video = self._video(batch)
         agg = {}
         for i in range(num):
             s = i * window
@@ -173,19 +221,40 @@ class PredictionTrainer:
                 agg[k] = agg.get(k, 0.0) + v.mean() / num
         return {k: float(v) for k, v in agg.items()}
 
-    def _eval_epoch(self, test_iter, cap: Optional[int]):
-        """Epoch metrics over the eval iterator, capped at `cap` batches
+    def _eval_epoch(self, loader, cap: Optional[int]):
+        """Epoch metrics over the loader's batches, capped at `cap` batches
         (None: the full set)."""
         agg = defaultdict(float)
         n = 0
-        for batch in test_iter:
-            for mode, tag in ((False, "1step_"), (True, "autoreg_")):
-                for k, v in self._eval_video(batch, autoregressive=mode).items():
-                    agg[f"{tag}{k}"] += v
-            n += 1
-            if cap is not None and n >= cap:
-                break
+        batches = device_prefetch(iter(loader), self.device)
+        try:
+            for batch in batches:
+                for mode, tag in ((False, "1step_"), (True, "autoreg_")):
+                    for k, v in self._eval_video(batch, autoregressive=mode).items():
+                        agg[f"{tag}{k}"] += v
+                n += 1
+                if cap is not None and n >= cap:
+                    break
+        finally:
+            batches.close()
         return {k: v / max(n, 1) for k, v in agg.items()}, n
+
+    def _plot_eval(self, loader, epoch: int, tag: str = "eval"):
+        """The autoregressive rollout of the loader's first batch over its
+        first n_eval frames as `<tag>_<epoch>.gif`: truth with the robot
+        masks in red above the prediction (trainer.py:437-453)."""
+        n = self.cfg.n_eval
+        batch = next(iter(loader), None)
+        if batch is None or len(batch["images"]) < n:
+            return
+        video = self._video(device_batch(batch, self.device))
+        _, preds = self.eval_step_ar(self._window(video, 0, n), self._generator)
+        path = eval_gif(
+            os.path.join(self.log_dir, f"{tag}_{epoch}.gif"),
+            batch["images"][1:n], preds.float().cpu().numpy(),
+            masks=batch["masks"][1:n])
+        if path:
+            self.logger.video(path, self._step, key=f"{tag}/rollout")
 
     # ------------------------------------------------------------------
     def _trees(self) -> Dict[str, dict]:
@@ -236,57 +305,78 @@ class PredictionTrainer:
             self.logger.info(f"loaded {cfg.dynamics_model_ckpt} at step "
                              f"{self._step}")
         self._resume()
-        train_iter = train_loader.infinite()
+        # one batch at a time: the launches run ahead of the device, so a
+        # batch's copy already overlaps the steps queued before it; staging
+        # further ahead on this thread would only put the next batch's
+        # generation or collation before this batch's launches
+        train_iter = device_prefetch(train_loader.infinite(), self.device,
+                                     size=1)
+        try:
+            self._train_epochs(train_iter, test_loader)
+        finally:
+            train_iter.close()
+        self._save(cfg.niter - 1)
+        ckpt.wait_for_checkpoints()  # join background npz writers
+        return self.model
+
+    def _train_epochs(self, train_iter, test_loader):
+        cfg = self.cfg
         window = cfg.n_past + cfg.n_future
+        eval_cap = cfg.eval_batches or None  # 0: the full set (trainer.py:467-489)
         for epoch in range(self._start_epoch, cfg.niter):
             device_agg = {}
+            wait = 0.0
             t_epoch = time.perf_counter()
             for _ in range(cfg.epoch_size):
+                t = time.perf_counter()
                 batch = next(train_iter)
+                wait += time.perf_counter() - t
                 for k, v in self._train_video(batch).items():
                     device_agg[k] = device_agg[k] + v if k in device_agg else v
             # one host sync per epoch
             epoch_metrics = {k: float(v) / cfg.epoch_size
                              for k, v in device_agg.items()}
             dt = time.perf_counter() - t_epoch
+            self.last_epoch = {"seconds": dt, "data_wait_s": wait}
             B = batch["images"].shape[1]
             spv = max(len(batch["images"]) // window, 1)
             epoch_metrics["frames_per_sec"] = cfg.epoch_size * B * window * spv / dt
             self.logger.scalars(epoch_metrics, self._step, prefix="train/")
             self.logger.info(
                 f"epoch {epoch} step {self._step} "
-                + " ".join(f"{k}={v:.4f}" for k, v in epoch_metrics.items()))
+                + " ".join(f"{k}={v:.4f}" for k, v in epoch_metrics.items())
+                + f" (waited {wait:.3f} s of {dt:.3f} s for data)")
             if (epoch + 1) % cfg.checkpoint_interval == 0:
                 self._save(epoch)
             if (epoch + 1) % cfg.eval_interval == 0:
-                # cfg.eval_batches 0 is the full set, as the reference
-                # (trainer.py:467-489)
-                ev, _ = self._eval_epoch(iter(test_loader),
-                                         cfg.eval_batches or None)
+                ev, _ = self._eval_epoch(test_loader, eval_cap)
                 self.logger.scalars(ev, self._step, prefix="eval/")
                 self.logger.info(
                     "eval " + " ".join(f"{k}={v:.4f}" for k, v in ev.items()))
-        self._save(cfg.niter - 1)
-        ckpt.wait_for_checkpoints()  # join background npz writers
-        return self.model
+                if self.transfer_loader is not None:
+                    tv, _ = self._eval_epoch(self.transfer_loader, eval_cap)
+                    self.logger.scalars(tv, self._step, prefix="transfer/")
+                self._plot_eval(test_loader, epoch)
 
     def copy_baseline(self):
         """The copy baseline's world-error floor (trainer.py:569-598): the
-        1step_/autoreg_ metrics of the learned models' eval over full train
-        and test epochs, each split's logged at step 0 and at 500000 so that
-        dashboards draw a horizontal line. Returns {split: metrics}. The
-        JAX trainer also writes a rollout gif of each split; the port has
-        no plots yet."""
+        1step_/autoreg_ metrics of the learned models' eval over full train,
+        test and (where the experiment has one) transfer epochs, each split's
+        logged at step 0 and at 500000 so that dashboards draw a horizontal
+        line, and a rollout gif of each split. Returns {split: metrics}."""
         train_loader, test_loader = self._setup_data()
+        splits = [("train", train_loader), ("test", test_loader)]
+        if self.transfer_loader is not None:
+            splits.append(("transfer", self.transfer_loader))
         results = {}
-        for name, loader in (("train", train_loader), ("test", test_loader)):
-            metrics, n = self._eval_epoch(iter(loader), None)
+        for name, loader in splits:
+            metrics, n = self._eval_epoch(loader, None)
             self.logger.scalars(metrics, 0, prefix=f"{name}/")
             self.logger.scalars(metrics, 500000, prefix=f"{name}/")
             self.logger.info(
-                f"copy baseline [{name}] ({n} batches; no rollout gif: the "
-                "port has no eval plots yet) "
+                f"copy baseline [{name}] ({n} batches) "
                 + " ".join(f"{k}={v:.5f}" for k, v in sorted(metrics.items())))
+            self._plot_eval(loader, 0, tag=name)
             results[name] = metrics
         return results
 

@@ -12,12 +12,20 @@ import torch
 
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.control.plan_server import PlanServer
+from robot_aware_control_tpu_torch.data.loader import DataLoader
+from robot_aware_control_tpu_torch.data.records import RecordDataset
 from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.training.step import make_eval_step
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
+from torch_data_cases import (
+    RecordTrainer,
+    eval_cells,
+    prefetch_check,
+    write_record_split,
+)
 from torch_mask_cases import MASK_CASES, mask_case
 from torch_serve_cases import (
     cell_invariance,
@@ -28,6 +36,7 @@ from torch_serve_cases import (
 from torch_train_small import (
     EVAL_TOL,
     GRAD_TOL_DEVICES,
+    TRAIN,
     TRAIN_SMALL,
     bench_batch,
     eval_kernel_vs_plain,
@@ -545,3 +554,39 @@ def test_gpu_full_width_f32_plan_takes_the_f32_kernel(cuda, monkeypatch):
     assert launched == plan_launches(cfg)
     assert launched["conv_lstm_cell_f32"] == 160
     assert plan.shape == (4, 2) and np.all(np.isfinite(plan))
+
+
+# ------------------------------------------------------------------ data
+def test_gpu_prefetched_batches_equal_host_batches(cuda, tmp_path):
+    """device_prefetch on the GPU over an epoch of record shards (3 loader
+    threads, 5 batches): every batch equal to its host batch bit for bit,
+    each read after the consumer's stream slept while the side stream
+    copied the next ones (tests/torch_data_cases.py:prefetch_check)."""
+    cfg = Config(**dict(TRAIN_SMALL, video_length=12))
+    write_record_split(str(tmp_path), 40, cfg, 0, episodes_per_shard=16)
+    loader = DataLoader(RecordDataset(str(tmp_path)), 8, num_workers=3, seed=0)
+    out = prefetch_check(loader, cuda)
+    assert out == {"batches": 5, "mismatched": 0, "keys": [
+        "actions", "images", "masks", "qpos", "states"]}
+
+
+def test_gpu_records_trainer_eval_takes_sm90(cuda, tmp_path):
+    """PredictionTrainer fed by record shards at the bf16 width of bench.py
+    (g_dim 256, z_dim 64; batch 4, 12-frame videos): it trains an epoch,
+    and its eval epoch (2 test batches of 16) and eval gif launch
+    eval_cells cells, every one through sm90."""
+    cfg = Config(**dict(TRAIN, batch_size=4, test_batch_size=16,
+                        video_length=12, n_eval=6, niter=1, epoch_size=1,
+                        eval_interval=1, checkpoint_interval=1, data_threads=2,
+                        log_dir=str(tmp_path), jobname="records"))
+    write_record_split(str(tmp_path / "train"), 8, cfg, 0)
+    write_record_split(str(tmp_path / "test"), 32, cfg, 1)
+    tr = RecordTrainer(cfg, str(tmp_path), cuda)
+    kernels.reset_launches()
+    tr.train()
+    tr.logger.close()
+    cells = eval_cells(cfg, 2)
+    assert dict(kernels.launches) == {
+        "conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
+        "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}
+    assert tr._step == 2

@@ -208,7 +208,19 @@ def test_argparser_takes_the_jax_flags():
                                 dict(sharded_checkpoint=True)])
 def test_unported_options_raise(tmp_path, kw):
     """Options the port does not have yet raise when the trainer is built;
-    an experiment whose data loader is not ported, when it trains."""
+    data it cannot read yet (a public-RoboNet raw file, here in a
+    train_robonet tree), when it trains: the reader's error reaches the
+    trainer through the loader's threads."""
+    if kw.get("experiment") == "train_robonet":
+        import h5py
+
+        root = tmp_path / "data"
+        for view in ("sudri0_c0", "sudri0_c1"):
+            (root / "sawyer_views" / view).mkdir(parents=True)
+            with h5py.File(root / "sawyer_views" / view / "raw.hdf5", "w") as hf:
+                hf.create_group("env")
+                hf.create_group("policy")
+        kw = dict(kw, data_root=str(root), data_threads=1)
     with pytest.raises(NotImplementedError):
         tr = PredictionTrainer(Config(**_trainer_cfg(tmp_path, **kw)),
                                device="cpu")
@@ -241,8 +253,13 @@ def test_trainer_trains_evaluates_saves_and_resumes(jax_side, tmp_path):
     with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     train = [r for r in recs if "train/loss" in r]
-    evals = [r for r in recs if any(k.startswith("eval/") for k in r)]
+    evals = [r for r in recs if "eval/autoreg_psnr" in r]
+    gifs = [r for r in recs if "eval/rollout" in r]
     assert len(train) == 2 and len(evals) == 2
+    # each eval epoch's rollout gif, as the JAX trainer logs it
+    assert [os.path.basename(r["eval/rollout"]) for r in gifs] == [
+        "eval_0.gif", "eval_1.gif"]
+    assert all(os.path.isfile(r["eval/rollout"]) for r in gifs)
     assert set(train[0]) - {"step", "wall_s"} == {
         f"train/{k}" for k in JAX_TRAIN_KEYS | {"frames_per_sec"}}
     assert set(evals[0]) - {"step", "wall_s"} == {

@@ -740,7 +740,12 @@ def test_copy_baseline_matches_jax_trainer(tmp_path):
             np.testing.assert_allclose(got[split][k], v, rtol=1e-5, err_msg=k)
     with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    assert sorted(r["step"] for r in recs) == [0, 0, 500000, 500000]
+    scalars = [r for r in recs if not any(k.endswith("/rollout") for k in r)]
+    assert sorted(r["step"] for r in scalars) == [0, 0, 500000, 500000]
+    # a rollout gif of each split, at step 0, as the JAX trainer writes
+    gifs = {k: r["step"] for r in recs for k in r if k.endswith("/rollout")}
+    assert gifs == {"train/rollout": 0, "test/rollout": 0}
+    assert {"train_0.gif", "test_0.gif"} <= set(os.listdir(tr.log_dir))
 
 
 def test_heatmap_model_on_synthetic_data_raises(tmp_path):
