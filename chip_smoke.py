@@ -145,9 +145,53 @@ Phases, each of which raises on failure:
                 counted), a checkpoint and a resume; frames/s and the
                 share of the epoch spent waiting in next(train_iter),
                 beside the synthetic trainer's at the same batch.
+ 13. robots     the chain robots and the robot models
+                (robot/kinematic_chain.py, robot/analytical.py,
+                training/robot_trainer.py, the finetune path of
+                training/trainer.py): (a) for each of the 8 chain keys, FK
+                on the card against the CPU (1e-5 m), IK to FK-made targets
+                (valid; each tip within 1e-5 m of its target where the
+                CPU's is and of the CPU's distance), the thin and thick masks
+                of the same joints differing only within 1e-3 px of an edge
+                (fetch occluded); (b) control_franka and control_wx250s at
+                the canonical planning config of phase 6 with seed-0
+                weights: one warm-up and three timed plans, each finite,
+                shaped (4, 2), clamped, launching the cell 160 times, all
+                through sm90, and the mask kernel never; the latency
+                (median), the device kernels and host syncs of a plan, a
+                profiled plan's busy share, the IK's and the chain
+                render's device time at a rollout's shapes (CUDA events),
+                the peak memory of a plan; the plan's warm-started IK at a
+                rollout's shapes against the CPU's (tips within 1e-5 m) and
+                the chain masks of its joints against the CPU env's (equal
+                but within 1e-3 px of an edge); get_action_batched of 2 chain
+                requests equal to their single plans bit for bit; a small
+                float32 chain plan on the card equal to the CPU's with
+                injected noise at the CPU's robot trajectory (the IK's
+                choice between starts that tie at rounding differs between
+                devices); (c) RobotPredictionTrainer at its defaults (hidden
+                512, 256 sequences of 8 steps, batch 32, 3 epochs): one
+                train step on the card against the CPU's (losses,
+                parameters; float32, TF32 off), the state rollout MSE
+                falls, the mask IoU in [0, 1], the mask kernel's launches
+                in its evals counted and the kernel held bit for bit to its
+                plain version on an eval's own segments, the {joint_model,
+                gripper_model} checkpoint written; (d) finetune_locobot at
+                the training config of bench.py:136-156 (batch 128, window
+                6, bf16, remat conv) fed by record shards with the locobot
+                bounds attached, starting from a full-width svg checkpoint
+                through --dynamics_model_ckpt (step 0, a fresh optimizer),
+                once with the analytical robot model and once with
+                --learned_robot_model from (c)'s checkpoint: it trains, its
+                eval epoch keeps the best of 3 prior samples, the mask
+                kernel's and the sm90 cell's launches counted, the mask
+                kernel held bit for bit to its plain version on the first
+                train window's and eval window's joints of each renderer
+                the robot model used; frames/s and
+                the data-wait share beside phase 12's records trainer.
 
-Prints the card line, one JSON line each of the train, serve, variants
-and data phases and one of kernels (the mask kernel, the sm90 cell at the planner's
+Prints the card line, one JSON line each of the train, serve, variants,
+data and robots phases and one of kernels (the mask kernel, the sm90 cell at the planner's
 shapes and at det's, the WMMA kernel and the float32 kernel, each with its
 launches on its own path), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -179,6 +223,11 @@ from robot_aware_control_tpu_torch.data.records import RecordDataset
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.planning.cost import InpaintBlurCost, gaussian_blur
 from robot_aware_control_tpu_torch.training import checkpoint as ckpt
+from robot_aware_control_tpu_torch.training.robot_trainer import (
+    JointPosDataset,
+    RobotPredictionTrainer,
+    rollout,
+)
 from robot_aware_control_tpu_torch.training.step import make_train_step
 from robot_aware_control_tpu_torch.training.trainer import PredictionTrainer
 
@@ -209,6 +258,22 @@ from torch_data_cases import (  # noqa: E402
     eval_cells,
     prefetch_check,
     write_record_split,
+)
+from torch_chain_cases import (  # noqa: E402
+    CHAIN_EXPERIMENTS,
+    chain_batched_diff,
+    chain_geometry,
+    chain_joints_parity,
+    chain_start_goal,
+    small_chain_plan_parity,
+)
+from torch_robot_cases import (  # noqa: E402
+    ROBOT,
+    FinetuneRecordTrainer,
+    finetune_launches,
+    record_renders,
+    recorded_kernel_vs_plain,
+    robot_step_parity,
 )
 from torch_variant_cases import (  # noqa: E402
     CANONICAL,
@@ -1494,6 +1559,254 @@ def check_data(dev):
     return out, launched["conv_lstm_cell_sm90"]
 
 
+# ---------------------------------------------------------------- robots
+def count_syncs(fn) -> dict:
+    """Host syncs that PyTorch ops make in fn() (its sync debug mode warns
+    at each), by the Python line that called the op."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)))
+
+
+def device_ms(fn) -> float:
+    """The device's busy milliseconds in one fn() under torch.profiler
+    (`device_busy_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof)
+
+
+def chain_plans(experiment, n_timed=3):
+    """Phase 13 (b) for one chain robot (see the module docstring)."""
+    cfg = Config(**dict(CANONICAL, experiment=experiment))
+    policy = CEMPolicy(cfg, svg.init(cfg, seed=0, device="cuda"))
+    engine = policy.engine
+    start, goal = chain_start_goal(np.random.RandomState(0), experiment)
+    want = dict(plan_launches(cfg), capsule_mask_render=0)
+    plan_at = lambda i: policy.get_action(start, goal, ep_num=1, step=i)
+    seconds = []
+    kernels.reset_launches()
+    for i in range(n_timed + 1):
+        before = dict(kernels.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = plan_at(i)
+        torch.cuda.synchronize()
+        if i:
+            seconds.append(time.perf_counter() - t0)
+        got = {k: kernels.launches[k] - before[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{experiment} plan {i} launched {got}, "
+                                 f"expected {want}")
+        if (plan.shape != (cfg.horizon - 1, 2) or not np.all(np.isfinite(plan))
+                or np.abs(plan).max() > 0.05):
+            raise AssertionError(f"{experiment}: bad plan {plan!r}")
+    launches = dict(kernels.launches)
+    latency = statistics.median(seconds)
+    sync_sites = count_syncs(lambda: plan_at(10))
+    syncs = sum(sync_sites.values())
+    torch.cuda.reset_peak_memory_stats()
+    plan_at(11)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_plan(lambda: plan_at(12), f"{experiment} plan")
+    # the IK and the render of one rollout at the plan's shapes
+    N, T, A = cfg.action_candidates, cfg.horizon - 1, cfg.action_dim
+    g = torch.Generator("cuda").manual_seed(0)
+    acts = (torch.randn(T, N, A, generator=g, device="cuda") * 0.015).clamp(
+        -0.05, 0.05)
+    start_raw = torch.tensor(np.array([0.3, 0.0, 0.15, 0, 0], np.float32),
+                             device="cuda").expand(N, 5)
+    q0 = torch.zeros(N, engine.qpos_dim, device="cuda")
+    _, qs = engine.chain_joints(start_raw, q0, acts)
+    # the IK launches thousands of kernels, more than the launch queue
+    # holds behind cuda_ms's sleeping kernel: its device time is the busy
+    # time of a profile
+    ik_ms = device_ms(lambda: engine.chain_joints(start_raw, q0, acts))
+    render_ms = cuda_ms(lambda: engine.chain_env.render(qs), n=5)
+    joints = chain_joints_parity(engine, start_raw, q0, acts)
+    batched_diff = chain_batched_diff(policy, experiment, 2)
+    if batched_diff != 0.0:
+        raise AssertionError(f"{experiment}: batched plans differ from single "
+                             f"plans by {batched_diff}")
+    out = dict(latency_s=latency, latency_runs=seconds, launches=launches,
+               launches_per_plan=want, host_syncs_per_plan=syncs,
+               host_sync_sites=sync_sites,
+               peak_gb=peak_gb, ik_ms_per_rollout=ik_ms,
+               render_ms_per_rollout=render_ms,
+               ik_ms_per_plan=ik_ms * cfg.opt_iter,
+               render_ms_per_plan=render_ms * cfg.opt_iter,
+               joints_vs_cpu=joints, batched_diff=batched_diff)
+    if prof:
+        out["busy_ms"], out["wall_ms"] = prof[:2]
+        out["busy_share"] = prof[0] / prof[1]
+        out["device_kernels_per_plan"] = sum(r[1] for r in prof[2])
+    print(f"{experiment}: plan latency {latency:.4f} s (median of {n_timed}: "
+          + ", ".join(f"{v:.4f}" for v in seconds) + f"), launches per plan "
+          f"{want}, {out.get('device_kernels_per_plan')} device kernels and "
+          f"{syncs} host syncs a plan ({sync_sites}), peak {peak_gb:.2f} GB; IK "
+          f"{ik_ms:.3f} ms and chain render {render_ms:.3f} ms of device time "
+          f"a rollout ({ik_ms * cfg.opt_iter:.2f} and "
+          f"{render_ms * cfg.opt_iter:.2f} ms a plan); warm-started IK vs CPU "
+          f"at {joints['tips']} tips: {joints['ik_tip_err']:.2g} m (CPU "
+          f"{joints['ik_tip_err_cpu']:.2g}), {joints['mask_differ']} mask pixels "
+          f"differ ({joints['mask_band']} near an edge); batched == single")
+    return out
+
+
+def check_robot_trainer(dev, d):
+    """Phase 13 (c). Returns its dict and the checkpoint's path."""
+    out = {"step_parity": robot_step_parity(dev, os.path.join(d, "parity"))}
+    cfg = Config(**dict(ROBOT, log_dir=d))
+    tr = RobotPredictionTrainer(cfg)
+    test = JointPosDataset(cfg, num=64, seed=cfg.seed + 1)
+    before = tr.evaluate(test)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr.train(None, test)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    after = tr.evaluate(test)
+    eval_batches = 64 // min(cfg.test_batch_size, 64)
+    want = {"capsule_mask_render": 2 * eval_batches * cfg.niter,
+            "conv_lstm_cell": 0, "conv_lstm_cell_sm90": 0, "conv_lstm_cell_f32": 0}
+    if launched != want:
+        raise AssertionError(f"robot trainer launched {launched}, expected {want}")
+    if not (after["state_rollout_mse"] < before["state_rollout_mse"]
+            and 0.0 <= after["mask_iou"] <= 1.0):
+        raise AssertionError(f"robot trainer: before {before}, after {after}")
+    # the mask kernel on an eval's own segments against its plain version
+    batch = {k: torch.tensor(v, device=dev) for k, v in next(test.batches(16)).items()}
+    with torch.no_grad():
+        _, qq = rollout(tr.joint, tr.grip, batch["states"][0], batch["qpos"][0],
+                        batch["actions"])
+    segs = tr.renderer.segment_params(qq).reshape(-1, 8, 6).contiguous()
+    got = kernels.capsule_mask_render(segs, cfg.image_height, cfg.image_width)
+    differ = int((got != kernels.capsule_mask_render_plain(
+        segs, cfg.image_height, cfg.image_width)).sum())
+    if differ:
+        raise AssertionError(f"mask kernel differs from plain on the robot "
+                             f"trainer's segments in {differ} pixels")
+    path = ckpt.latest_checkpoint(tr.log_dir)
+    tr.logger.close()
+    out.update(before=before, after=after, launches=launched,
+               kernel_vs_plain_differ=differ, masks_checked=segs.shape[0],
+               checkpoint=os.path.basename(path))
+    print(f"robot trainer ({cfg.niter} epochs of 256 sequences, batch "
+          f"{cfg.batch_size}) {out['seconds']:.2f} s: state rollout MSE "
+          f"{before['state_rollout_mse']:.5f} -> {after['state_rollout_mse']:.5f}, "
+          f"mask IoU {after['mask_iou']:.4f}, {launched['capsule_mask_render']} "
+          f"mask kernel launches in its evals (kernel == plain on "
+          f"{segs.shape[0]} of its masks); one train step vs CPU "
+          f"{out['step_parity']}; wrote {out['checkpoint']}")
+    return out, path
+
+
+def check_finetune(dev, d, robot_ckpt, records_fps):
+    """Phase 13 (d)."""
+    cfg = Config(**dict(TRAIN, experiment="finetune_locobot", test_batch_size=16,
+                        video_length=31, n_eval=10, niter=1, epoch_size=2,
+                        eval_interval=1, checkpoint_interval=1, data_threads=5,
+                        jobname="finetune"))
+    write_record_split(os.path.join(d, "train"), 2 * cfg.batch_size, cfg, 0)
+    write_record_split(os.path.join(d, "test"), 32, cfg, 1)
+    src = PredictionTrainer(cfg.replace(experiment="synthetic",
+                                        log_dir=os.path.join(d, "src")))
+    src._step = 5
+    src._save(0)
+    ckpt.wait_for_checkpoints()
+    src_path = ckpt.latest_checkpoint(src.log_dir)
+    src.logger.close()
+    out = {}
+    for mode in ("analytical", "learned"):
+        fcfg = cfg.replace(log_dir=os.path.join(d, mode),
+                           dynamics_model_ckpt=src_path,
+                           learned_robot_model=mode == "learned",
+                           robot_model_ckpt=robot_ckpt if mode == "learned" else None)
+        tr = FinetuneRecordTrainer(fcfg, d)
+        if (tr.learned_robot is None) != (mode == "analytical"):
+            raise AssertionError(f"{mode}: robot model not set up")
+        seen = {}
+        epochs = tr._train_epochs
+
+        def first(train_iter, test_loader, tr=tr, seen=seen, epochs=epochs):
+            seen.update(step=tr._step, opt_state=len(tr.optimizer.state))
+            return epochs(train_iter, test_loader)
+
+        tr._train_epochs = first
+        rendered = record_renders(tr)
+        kernels.reset_launches()
+        tr.train()
+        launched = dict(kernels.launches)
+        vs_plain = recorded_kernel_vs_plain(rendered)
+        want = finetune_launches(cfg, cfg.epoch_size, 32 // cfg.test_batch_size)
+        if launched != want or seen != {"step": 0, "opt_state": 0}:
+            raise AssertionError(f"finetune {mode}: launched {launched}, expected "
+                                 f"{want}; started at {seen}")
+        with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train = next(r for r in recs if "train/loss" in r)
+        ev = next(r for r in recs if "eval/autoreg_psnr" in r)
+        if not all(np.isfinite(v) for r in (train, ev) for v in r.values()):
+            raise AssertionError(f"finetune {mode}: non-finite metrics {train} {ev}")
+        epoch = tr.last_epoch
+        tr.logger.close()
+        out[mode] = dict(frames_per_s=train["train/frames_per_sec"],
+                         data_wait_share=epoch["data_wait_s"] / epoch["seconds"],
+                         epoch_s=epoch["seconds"], steps=tr._step, launches=launched,
+                         kernel_vs_plain=vs_plain,
+                         started=seen, loss=train["train/loss"],
+                         autoreg_psnr=ev["eval/autoreg_psnr"])
+        print(f"finetune_locobot ({mode} robot model, batch {cfg.batch_size}, "
+              f"records): {out[mode]['frames_per_s']:.1f} frames/s over the "
+              f"epoch, waiting {out[mode]['data_wait_share']:.1%} of it for data "
+              f"(phase 12's records trainer {records_fps:.1f} frames/s); started "
+              f"at step 0 with a fresh optimizer from {os.path.basename(src_path)}; "
+              f"launches {launched} (mask kernel == plain on "
+              f"{vs_plain['masks_checked']} of its masks, shapes "
+              f"{vs_plain['shapes']}); loss {out[mode]['loss']:.4f}, best-of-3 "
+              f"autoregressive PSNR {out[mode]['autoreg_psnr']:.2f}")
+    return out
+
+
+def check_robots(dev, records_fps):
+    """Phase 13 (see the module docstring). Returns its JSON line's dict."""
+    out = {"geometry": chain_geometry(dev)}
+    print("chain geometry, card vs CPU, all 8 keys: " + "; ".join(
+        f"{k} FK {r['fk_err']:.2g} m, IK tips {r['ik_tip_err']:.2g} m (CPU "
+        f"{r['ik_tip_err_cpu']:.2g}), "
+        f"{r['mask_differ']} mask pixels differ ({r['mask_band']} near an edge)"
+        for k, r in out["geometry"].items()))
+    out["plans"] = {exp: chain_plans(exp) for exp in CHAIN_EXPERIMENTS}
+    out["small_plan_parity"] = {exp: small_chain_plan_parity(exp, dev)
+                                for exp in CHAIN_EXPERIMENTS}
+    print(f"small float32 chain plans, card vs CPU at the CPU's robot "
+          f"trajectory: {out['small_plan_parity']}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        out["robot_trainer"], robot_ckpt = check_robot_trainer(
+            dev, os.path.join(d, "robot"))
+        out["finetune"] = check_finetune(dev, d, robot_ckpt, records_fps)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1578,6 +1891,20 @@ def main() -> int:
     data, data_cells = check_data(dev)
     line["kernels"][1]["launches_data_trainer"] = data_cells
     print(json.dumps({"data": dict(data, card=card)}))
+
+    # the chain robots, the robot trainer and the finetune trainers
+    phase("robots")
+    robots = check_robots(dev, data["trainer"]["frames_per_s"])
+    mask_entry, cell_entry = line["kernels"][:2]
+    mask_entry["launches_robot_trainer"] = robots["robot_trainer"]["launches"][
+        "capsule_mask_render"]
+    for mode, r in robots["finetune"].items():
+        mask_entry[f"launches_finetune_{mode}"] = r["launches"]["capsule_mask_render"]
+        cell_entry[f"launches_finetune_{mode}"] = r["launches"]["conv_lstm_cell_sm90"]
+    for exp, r in robots["plans"].items():
+        cell_entry[f"launches_{exp}"] = r["launches"]["conv_lstm_cell_sm90"]
+        mask_entry[f"launches_{exp}"] = r["launches"]["capsule_mask_render"]
+    print(json.dumps({"robots": dict(robots, card=card)}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

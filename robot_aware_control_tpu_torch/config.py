@@ -75,6 +75,11 @@ class Config:
     scheduled_sampling: bool = False
     scheduled_sampling_k: int = 4000
     robot_pixel_weight: float = 0.0
+    # finetune: the learned robot MLPs (training/robot_trainer.py) in place
+    # of the analytical model, loaded from a {joint_model, gripper_model}
+    # checkpoint
+    learned_robot_model: bool = False
+    robot_model_ckpt: Optional[str] = None
     lstm_group_norm: bool = False
     # the hand-written ConvLSTM cell kernel on inference paths (planning,
     # eval); training runs the autograd cell (the kernel has no backward)

@@ -18,7 +18,10 @@ module paths:
     GroupNorm scale/bias <-> weight/bias.
 
 `svg_state_dict` (nested trees) and `state_dict_from_flat` (keystr dicts)
-go from JAX to the port, `jax_flat_trees` back. The optimizer state maps
+go from JAX to the port, `jax_flat_trees` back. The robot MLPs' trees
+`{"l1", "l2", "l3", "out"} x {"w" (in, out), "b"}` map to `nn.Linear`
+state dicts (weight (out, in)) through `robot_mlp_state_dict` and back
+through `robot_mlp_tree`. The optimizer state maps
 to optax's: adam `[0].count`, `[0].mu[...]`, `[0].nu[...]`
 (`torch.optim.Adam`'s step, exp_avg, exp_avg_sq), rmsprop `[0].nu[...]`,
 sgd nothing.
@@ -213,3 +216,29 @@ def det_from_jax(cfg: Config, params, bn_state, device="cuda") -> Det:
     (a strict load)."""
     return _from_jax_trees(Det(cfg, device=resolve_device(device)), params,
                            bn_state)
+
+
+def robot_mlp_state_dict(tree) -> dict:
+    """A JAX robot MLP, as a nested tree {"l1": {"w", "b"}, ...} or a flat
+    {keystr: array} dict, -> the port's `RobotMLP` state dict (float32)."""
+    leaves = (tree.items() if all(isinstance(k, str) and k.startswith("[")
+                                  for k in tree)
+              else ((keystr(p), a) for p, a in _leaves(tree)))
+    sd = {}
+    for key, arr in leaves:
+        layer, leaf = parse_keystr(key)
+        arr = np.asarray(arr, np.float32)
+        sd[f"{layer}.{'weight' if leaf == 'w' else 'bias'}"] = torch.tensor(
+            np.ascontiguousarray(arr.T if leaf == "w" else arr))
+    return sd
+
+
+def robot_mlp_tree(mlp: nn.Module) -> dict:
+    """The port's `RobotMLP` -> {keystr: array} of the JAX tree (float32
+    numpy, w as (in, out))."""
+    out = {}
+    for name, t in mlp.state_dict().items():
+        layer, leaf = name.split(".")
+        out[keystr([layer, "w" if leaf == "weight" else "b"])] = _to_jax(
+            t, (1, 0) if leaf == "weight" else None)
+    return out

@@ -117,8 +117,8 @@ class RoboNetHDF5Dataset:
             if "env" in hf and "policy" in hf:
                 raise NotImplementedError(
                     f"{path}: a public-RoboNet raw file; its reader "
-                    "(data/raw_robonet.py, ROADMAP section 1 item 9) and the "
-                    "kinematic-chain mask renderer (item 4) are not ported yet")
+                    "(data/raw_robonet.py, ROADMAP section 1 item 9) is not "
+                    "ported yet")
             image_key = "observations" if "observations" in hf else "frames"
             mask_key = "masks" if "masks" in hf else "mask"
             ep_len = hf[image_key].shape[0]

@@ -1,6 +1,8 @@
-"""Reconstruction losses, robot-aware "don't-care" criteria and KL
-(counterpart of `robot_aware_control_tpu/ops/losses.py:23-120`; reference:
-src/prediction/losses.py:11-106), in mask-multiply form:
+"""Reconstruction losses, robot-aware "don't-care" criteria, KL, and the
+GAN and VAE losses (counterpart of `robot_aware_control_tpu/ops/losses.py`;
+reference: src/prediction/losses.py:11-106 and robonet/robonet/
+video_prediction/losses.py:14-45), the don't-care losses in mask-multiply
+form:
 
     dontcare(x, y, m) = mean_b( sum(|y - x| * w(m)) / (#world_px(m) + 1) )
     with w(m) = robot_weight on robot pixels, 1 elsewhere.
@@ -110,3 +112,44 @@ def zero_robot_region(mask, image):
     mask (B,H,W,1), image (B,H,W,C)."""
     keep = 1.0 - (mask.float() > 0.5).to(image.dtype)
     return image * keep
+
+
+# SAVP-family adversarial and VAE losses (JAX `losses.py:133-180`;
+# reference: robonet/robonet/video_prediction/losses.py:14-45, ops.py:1007-1015)
+def _sigmoid_xent(logits, labels):
+    """Numerically stable sigmoid cross-entropy, elementwise
+    (tf.nn.sigmoid_cross_entropy_with_logits semantics)."""
+    return (torch.clamp(logits, min=0.0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def gan_criterion(logits, labels: float, gan_loss_type: str = "LSGAN"):
+    """GAN loss against a broadcast scalar label (reference: losses.py:14-39):
+    1.0 (or 1 - smoothing) for real data, 0.0 for fake. "GAN" with a
+    smoothed label subtracts the label's entropy, so that its minimum is
+    zero; "LSGAN" is the squared error; "SNGAN" the softplus of -logits
+    (real) or logits (fake)."""
+    logits = logits.float()
+    if gan_loss_type == "GAN":
+        if labels in (0.0, 1.0):
+            return _sigmoid_xent(logits, labels).mean()
+        entropy = (-labels * math.log(labels)
+                   - (1.0 - labels) * math.log(1.0 - labels))
+        return (_sigmoid_xent(logits, labels) - entropy).mean()
+    if gan_loss_type == "LSGAN":
+        return ((logits - labels) ** 2).mean()
+    if gan_loss_type == "SNGAN":
+        if labels == 0.0:
+            return torch.logaddexp(torch.zeros_like(logits), logits).mean()
+        if labels == 1.0:
+            return torch.logaddexp(torch.zeros_like(logits), -logits).mean()
+        raise NotImplementedError("SNGAN labels must be 0 or 1")
+    raise ValueError(f"Unknown GAN loss type {gan_loss_type}")
+
+
+def vae_kl_loss(mu, log_sigma_sq):
+    """KL(N(mu, sigma) || N(0, 1)), summed over the latent and averaged
+    over the batch (reference: losses.py:42-45)."""
+    mu, log_sigma_sq = _f32(mu, log_sigma_sq)
+    return -0.5 * (1.0 + log_sigma_sq - mu ** 2
+                   - torch.exp(log_sigma_sq)).sum(-1).mean()

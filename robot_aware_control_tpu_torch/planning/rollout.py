@@ -1,12 +1,14 @@
 """Batched model-rollout engine for CEM planning.
 
 Counterpart of `robot_aware_control_tpu/planning/rollout.py:RolloutEngine`
-(reference: src/cem/trajectory_sampler.py:36-199) for the locobot planar
-path: eef integration, batched analytic IK, capsule mask rendering (and
-eef heatmaps for heatmap-conditioned models), T model steps of the
-configured family (svg or det), compositing and cost, with the candidates
-as the batch axis and a Python loop over the horizon. Semantics kept from
-the reference:
+(reference: src/cem/trajectory_sampler.py:36-199): eef integration,
+batched IK, robot masks (and eef heatmaps for heatmap-conditioned models),
+T model steps of the configured family (svg or det), compositing and cost,
+with the candidates as the batch axis and a Python loop over the horizon.
+The locobot path takes the analytic IK and the capsule renderer (its CUDA
+kernel); control_franka and control_wx250s the robot's own measured chain
+(robot/kinematic_chain.py): DLS IK warm-started from the previous step and
+the chain's thick mask env. Semantics kept from the reference:
 
   * thick masks for model input and cost (predict_batch(..., thick=True)),
   * robot-pixel blackout of the model input when a dontcare loss /
@@ -38,6 +40,7 @@ from robot_aware_control_tpu_torch.ops.losses import zero_robot_region
 from robot_aware_control_tpu_torch.ops.nn import conv_rows
 from robot_aware_control_tpu_torch.planning.cost import RobotWorldCost
 from robot_aware_control_tpu_torch.robot import locobot_kinematics as lk
+from robot_aware_control_tpu_torch.robot.kinematic_chain import ChainMaskEnv
 from robot_aware_control_tpu_torch.robot.mask_renderer import CapsuleMaskRenderer
 from robot_aware_control_tpu_torch.training.step import _conditioning, _model_step
 from robot_aware_control_tpu_torch.utils.device import resolve_device
@@ -106,17 +109,11 @@ class RolloutEngine:
     costs run per request too (a reduction's order depends on how many
     rows it reduces)."""
 
-    qpos_dim = 5  # locobot: yaw, shoulder, elbow, wrist, roll
-
     def __init__(self, cfg: Config, camera_key: str = "locobot_c0",
                  push_height: float = lk.PUSH_HEIGHT,
                  default_pitch: float = lk.DEFAULT_PITCH,
                  default_roll: float = lk.DEFAULT_ROLL,
                  pick: bool = False, device="cuda"):
-        if cfg.experiment in ("control_franka", "control_wx250s") and not pick:
-            raise NotImplementedError(
-                f"{cfg.experiment}: chain-robot rollouts wait for "
-                "robot/kinematic_chain.py, which is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         # pick rollouts integrate 3-D eef motion (reference: the pick
@@ -134,6 +131,24 @@ class RolloutEngine:
             modified=cfg.modified, device=self.device)
         self.use_robot = _needs_robot_model(cfg)
         self.dtype = compute_dtype(cfg)
+        # control_franka / control_wx250s plan with the robot's own measured
+        # chain and mask env (reference: trajectory_sampler.py:27-33 picks
+        # FrankaAnalyticalModel / WX250sAnalyticalModel, whose mask envs
+        # load the franka / wx250s MJCFs); states stay in the locobot frame
+        # for normalization (trajectory_sampler.py:94-98)
+        self.qpos_dim = 5  # locobot: yaw, shoulder, elbow, wrist, roll
+        self.chain_robot = None if pick else {
+            "control_franka": "franka", "control_wx250s": "wx250s"
+        }.get(cfg.experiment)
+        if self.chain_robot is not None:
+            self.chain_env = ChainMaskEnv(
+                self.chain_robot, (cfg.image_height, cfg.image_width),
+                thick=bool(cfg.cem_prediction_use_thick_mask), device=self.device)
+            self.chain = self.chain_env.chain
+            shift = (LOCO_FRANKA_DIFF if self.chain_robot == "franka"
+                     else LOCO_WX250S_DIFF)
+            self.chain_shift = torch.tensor(shift, device=self.device)
+            self.qpos_dim = self.chain.dof
 
     def robot_trajectory(self, start_state_norm, start_qpos, actions_tna):
         """IK + mask render for all candidates and steps
@@ -143,6 +158,8 @@ class RolloutEngine:
         (T, B, >=2), one row per candidate. Returns (states_norm
         (T+1,B,rd), states_raw (T+1,B,5), masks (T+1,B,h,w,1))."""
         start_raw = denormalize(start_state_norm, self.low, self.high)
+        if self.chain_robot is not None:
+            return self._chain_trajectory(start_raw, start_qpos, actions_tna)
         qpos = start_qpos[..., :5].float()
         if self.pick:
             # pick actions are env-unit eef deltas (x0.05 inside)
@@ -168,6 +185,33 @@ class RolloutEngine:
                                         + (rd - states_norm.shape[-1],))
             states_norm = torch.cat([states_norm, pad], -1)
         return states_norm[..., :rd]
+
+    def _chain_trajectory(self, start_raw, start_qpos, actions_tna):
+        """franka / wx250s (JAX `rollout.py:177-211`): planar eef
+        integration in the locobot frame (the model's normalization frame),
+        then per step the chain's DLS IK (20 iterations) warm-started from
+        the previous step's solution and the thick chain mask env, in the
+        robot's native frame (the shift LOCO_*_DIFF is xy only)."""
+        xy, qpos = self.chain_joints(start_raw, start_qpos, actions_tna)
+        z = torch.full(xy.shape[:-1] + (1,), self.push_height, device=xy.device)
+        states_raw = torch.cat([xy, z, torch.zeros_like(xy)], -1)
+        return (self._norm_to_robot_dim(states_raw), states_raw,
+                self.chain_env.render(qpos))
+
+    def chain_joints(self, start_raw, start_qpos, actions_tna):
+        """The chain path's eef xy in the locobot frame (T+1, B, 2) and
+        joints (T+1, B, dof): each step's IK starts from the previous
+        step's joints (and the chain's three seeds)."""
+        planar = actions_tna[..., :2] * self.cfg.eef_action_scale
+        xy0 = start_raw[..., :2][None]
+        xy = torch.cat([xy0, xy0 + torch.cumsum(planar, 0)], 0)
+        z = torch.full(xy.shape[:-1] + (1,), self.push_height, device=xy.device)
+        q = start_qpos[..., : self.chain.dof].float()
+        qs = []
+        for target in torch.cat([xy - self.chain_shift, z], -1):
+            q, _ = self.chain.ik(target, q, iters=20)
+            qs.append(q)
+        return xy, torch.stack(qs)
 
     @torch.inference_mode()
     def __call__(self, model, start_img, start_state_norm, start_qpos,
@@ -295,7 +339,7 @@ class TrajectorySampler:
         if rng is None:
             rng = torch.Generator(device=dev).manual_seed(cfg.seed)
         t = lambda a: None if a is None else torch.as_tensor(a, device=dev)[None]
-        inputs = request_inputs(cfg, start, goal, T)
+        inputs = request_inputs(cfg, start, goal, T, self.engine.qpos_dim)
         result = self.engine(self.model, *map(t, inputs[:3]),
                              torch.as_tensor(acts, device=dev),
                              *map(t, inputs[3:5]), rng,

@@ -7,8 +7,10 @@ in the JAX package's layouts (`convert.py`), stored under
 `<tree>|<keystr>` with the step under `__step__`, so that a file written
 by either package loads in the other. `latest_checkpoint` finds the
 newest `ckpt_<step>` of a log dir; `load_checkpoint` restores the named
-trees a caller asks for (a finetune load leaves out "opt"). Files are read
-without pickle. The JAX package's orbax directories (sharded checkpoints)
+trees a caller asks for (a finetune load leaves out "opt"). The robot
+models' checkpoints hold the trees "joint_model" and "gripper_model"
+(training/robot_trainer.py:load_robot_models). Files are read without
+pickle. The JAX package's orbax directories (sharded checkpoints)
 are not read here.
 """
 

@@ -29,16 +29,26 @@ The loop of the JAX trainer, for svg and det:
     hand kernel, then one over the transfer loader (logged under
     transfer/), then an autoregressive rollout of the first test batch
     written as `eval_<epoch>.gif` (trainer.py:437-453, 557-563);
-  * --dynamics_model_ckpt loaded before auto-resume (trainer.py:502-505);
+  * --dynamics_model_ckpt loaded before auto-resume (trainer.py:502-505),
+    as a finetune (step 0, a fresh optimizer) for the finetune_*
+    experiments;
+  * the finetune_* experiments' robot model (trainer.py:127-139, 263-303):
+    for finetune_locobot the analytical model (robot/analytical.py: IK and
+    the capsule-mask kernel), for any finetune with --learned_robot_model
+    the robot MLPs of --robot_model_ckpt (training/robot_trainer.py), in
+    either case only where the model reads masks or robot states. It
+    replaces each train and eval window's states and model-input masks
+    (eef heatmaps re-derived from the predicted states); eval metrics keep
+    the true masks, and an svg finetune's autoregressive eval keeps the
+    best of 3 prior samples by PSNR (trainer.py:384-416);
   * --model copy: the parameter-free copy baseline's metrics over full
     train, test and transfer epochs instead of training, with a rollout
     gif of each split (trainer.py:569-598).
 
-Not ported yet, and raising where they are read: the finetune_*
-experiments and their robot models, the models other than svg, det and
-copy, sharded checkpoints, public-RoboNet raw files. The synthetic data
-carries no heatmaps, so heatmap-conditioned models raise on it, as the JAX
-trainer fails. Not ported: mesh sharding, wandb.
+Not ported yet, and raising where they are read: the models other than
+svg, det and copy, sharded checkpoints, public-RoboNet raw files. The
+synthetic data carries no heatmaps, so heatmap-conditioned models raise on
+it, as the JAX trainer fails. Not ported: mesh sharding, wandb.
 """
 
 from __future__ import annotations
@@ -56,11 +66,22 @@ from robot_aware_control_tpu_torch import convert
 from robot_aware_control_tpu_torch.config import Config, argparser
 from robot_aware_control_tpu_torch.data import loader as data_loader
 from robot_aware_control_tpu_torch.data.loader import device_batch, device_prefetch
+from robot_aware_control_tpu_torch.data.heatmaps import create_heatmaps
 from robot_aware_control_tpu_torch.data.synthetic import SyntheticDataset
 from robot_aware_control_tpu_torch.models.registry import get_model
+from robot_aware_control_tpu_torch.models.robot_mlp import (
+    GripperStatePredictor,
+    JointPosPredictor,
+)
+from robot_aware_control_tpu_torch.robot.analytical import get_robot_model
+from robot_aware_control_tpu_torch.robot.mask_renderer import CapsuleMaskRenderer
 from robot_aware_control_tpu_torch.training import checkpoint as ckpt
 from robot_aware_control_tpu_torch.training.logger import RunLogger, make_log_folder
 from robot_aware_control_tpu_torch.training.plot import eval_gif
+from robot_aware_control_tpu_torch.training.robot_trainer import (
+    load_robot_models,
+    rollout,
+)
 from robot_aware_control_tpu_torch.training.step import (
     make_copy_eval_step,
     make_eval_step,
@@ -74,10 +95,6 @@ _WINDOW_KEYS = ("images", "masks", "states", "qpos", "heatmaps")
 class PredictionTrainer:
     def __init__(self, cfg: Config, device="cuda"):
         family = get_model(cfg)  # raises for a model the port does not have
-        if "finetune" in cfg.experiment:
-            raise NotImplementedError(
-                f"experiment {cfg.experiment!r}: the finetune experiments "
-                "and their robot models are not ported yet")
         if cfg.sharded_checkpoint:
             raise NotImplementedError(
                 "sharded_checkpoint: orbax checkpoints are not ported yet")
@@ -92,6 +109,16 @@ class PredictionTrainer:
         self.transfer_loader = None
         # the last epoch's seconds and the seconds it waited for batches
         self.last_epoch = None
+        # the finetune experiments' robot model (trainer.py:127-139): the
+        # analytical model is locobot's; the other finetunes keep the
+        # dataset's masks unless --learned_robot_model
+        self.robot_model = self.learned_robot = None
+        if "finetune" in cfg.experiment and (cfg.model_use_mask
+                                             or cfg.model_use_robot_state):
+            if cfg.learned_robot_model:
+                self.learned_robot = self._load_learned_robot_model()
+            elif cfg.experiment == "finetune_locobot":
+                self.robot_model = get_robot_model(cfg, device=self.device)
         if cfg.model == "copy":
             # no parameters: eval steps with the learned models' metric keys
             self.model = self.optimizer = self.train_step = None
@@ -102,6 +129,24 @@ class PredictionTrainer:
         self.train_step, self.optimizer = make_train_step(cfg, self.model)
         self.eval_step_ar = make_eval_step(cfg, self.model, autoregressive=True)
         self.eval_step_1 = make_eval_step(cfg, self.model, autoregressive=False)
+
+    # ------------------------------------------------------------------
+    def _load_learned_robot_model(self) -> dict:
+        """The robot MLPs of --robot_model_ckpt (a {joint_model,
+        gripper_model} checkpoint of either package; without one, as
+        initialised) and the thin capsule renderer of their masks
+        (trainer.py:141-176)."""
+        cfg, dev = self.cfg, self.device
+        joint = JointPosPredictor(cfg, seed=0, device=dev)
+        grip = GripperStatePredictor(cfg, seed=1, device=dev)
+        if cfg.robot_model_ckpt:
+            load_robot_models(cfg.robot_model_ckpt, joint, grip)
+        for m in (joint, grip):
+            m.eval().requires_grad_(False)
+        renderer = CapsuleMaskRenderer((cfg.image_height, cfg.image_width),
+                                       thick=False, modified=cfg.modified,
+                                       device=dev)
+        return {"joint": joint, "grip": grip, "renderer": renderer}
 
     # ------------------------------------------------------------------
     def _setup_data(self):
@@ -136,12 +181,17 @@ class PredictionTrainer:
                 data_loader.create_sawyer_transfer_loader)
             return data_loader.create_sawyer_loaders(cfg)
         factory = {
+            "finetune_sawyer_view": data_loader.create_sawyer_finetune_loaders,
+            "finetune_widowx": data_loader.create_widowx_finetune_loaders,
             "train_locobot_singleview": data_loader.create_locobot_loaders,
+            "finetune_locobot": data_loader.create_locobot_finetune_loaders,
             "train_locobot_table": data_loader.create_locobot_table_loaders,
             "train_locobot_pick": data_loader.create_locobot_pick_loaders,
         }.get(exp)
         if factory is not None:
             return factory(cfg)
+        if "finetune" in exp:
+            return data_loader.create_finetune_loaders(cfg)
         train, test = data_loader.create_loaders(cfg)
         self.transfer_loader = self._try_transfer(
             data_loader.create_transfer_loader)
@@ -162,12 +212,18 @@ class PredictionTrainer:
         k = float(self.cfg.scheduled_sampling_k)
         return k / (k + float(np.exp(min(self._step / k, 50.0))))
 
-    def _video(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    @property
+    def _robot_windows(self) -> bool:
+        """Whether a robot model replaces each window's states and masks."""
+        return self.robot_model is not None or self.learned_robot is not None
+
+    def _video(self, batch: Dict, qpos: bool = False) -> Dict[str, torch.Tensor]:
         """The tensors of a device batch that the steps read: the frames,
-        masks, states, heatmaps and actions (qpos is read by no step), and
-        the movement labels as loss weights (trainer.py:336-352)."""
+        masks, states, heatmaps and actions (qpos only with `qpos`: the
+        robot model reads it, no step does), and the movement labels as
+        loss weights (trainer.py:336-352)."""
         out = {k: batch[k] for k in _WINDOW_KEYS + ("actions",)
-               if k in batch and k != "qpos"}
+               if k in batch and (qpos or k != "qpos")}
         if "high_movement" in batch:
             out["batch_weight"] = torch.where(
                 batch["high_movement"], self.cfg.movement_weight, 1.0
@@ -180,6 +236,40 @@ class PredictionTrainer:
                     else video[k][s:e - 1] if k == "actions" else video[k])
                 for k in video}
 
+    def _apply_robot_model(self, window: Dict, batch: Dict) -> Dict:
+        """The window with the robot model's states and masks
+        (trainer.py:263-303): "states" predicted, "pred_masks" and
+        "masks_model_input" the predicted masks, "masks" still the true
+        ones; with heatmap conditioning, heatmaps re-derived from the
+        predicted states on the host (data/heatmaps.py:create_heatmaps)."""
+        cfg = self.cfg
+        if self.learned_robot is not None:
+            lr = self.learned_robot
+            ss, qq = rollout(lr["joint"], lr["grip"], window["states"][0],
+                             window["qpos"][0], window["actions"])
+            qq = torch.cat([window["qpos"][:1], qq])
+            states = torch.cat([window["states"][:1], ss])
+            masks = lr["renderer"].render(qq)
+        else:
+            states, masks = self.robot_model.predict_batch(
+                {"states": window["states"], "qpos": window["qpos"],
+                 "actions": window["actions"], "low": batch["low"],
+                 "high": batch["high"]})
+        out = dict(window, states=states, pred_masks=masks,
+                   masks_model_input=masks)
+        if cfg.model_use_heatmap:
+            s = states.cpu().numpy()
+            low = np.asarray(torch.as_tensor(batch["low"]).cpu())
+            high = np.asarray(torch.as_tensor(batch["high"]).cpu())
+            B = s.shape[1]
+            robots = batch.get("robot", ["locobot"] * B)
+            folders = batch.get("folder", ["c0"] * B)
+            hms = np.stack([create_heatmaps(
+                s[:, b], low[b], high[b], robots[b], folders[b],
+                (cfg.image_width, cfg.image_height)) for b in range(B)], 1)
+            out["heatmaps"] = torch.from_numpy(hms).to(states.device)
+        return out
+
     # ------------------------------------------------------------------
     def _train_video(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """Slice a device batch into train windows and take one step each
@@ -188,38 +278,53 @@ class PredictionTrainer:
         T = len(batch["images"])
         window = cfg.n_past + cfg.n_future
         num = max(T // window, 1)
-        video = self._video(batch)
+        video = self._video(batch, qpos=self._robot_windows)
         agg = {}
         for i in range(num):
             if cfg.random_snippet and T > window:
                 s = self._video_rng.randint(0, T - window + 1)
             else:
                 s = i * window
-            metrics = self.train_step(self._window(video, s, s + window),
-                                      self._sched_prob(), self._generator)
+            w = self._window(video, s, s + window)
+            if self._robot_windows:
+                w = self._apply_robot_model(w, batch)
+                w["masks"] = w.pop("masks_model_input")
+                del w["pred_masks"], w["qpos"]
+            metrics = self.train_step(w, self._sched_prob(), self._generator)
             self._step += 1
             for k, v in metrics.items():
                 agg[k] = agg[k] + v / num if k in agg else v / num
         return agg
 
     def _eval_video(self, batch: Dict, autoregressive=True) -> Dict[str, float]:
-        """Eval of a device batch over n_eval windows (trainer.py:491-563),
-        synced once."""
+        """Eval of a device batch over n_eval windows (trainer.py:384-416),
+        synced once: an svg finetune's autoregressive pass draws 3 prior
+        samples a window and keeps the sample whose PSNR over the video is
+        best."""
+        cfg = self.cfg
         T = len(batch["images"])
-        window = self.cfg.n_eval
+        window = cfg.n_eval
         num = max(T // window, 1)
+        num_samples = 3 if (autoregressive and cfg.model == "svg"
+                            and "finetune" in cfg.experiment) else 1
         step_fn = self.eval_step_ar if autoregressive else self.eval_step_1
-        video = self._video(batch)
-        agg = {}
+        video = self._video(batch, qpos=self._robot_windows)
+        samples = [{} for _ in range(num_samples)]
         for i in range(num):
             s = i * window
             if s + window > T:
                 break
-            per_step, _ = step_fn(self._window(video, s, s + window),
-                                  self._generator)
-            for k, v in per_step.items():
-                agg[k] = agg.get(k, 0.0) + v.mean() / num
-        return {k: float(v) for k, v in agg.items()}
+            w = self._window(video, s, s + window)
+            if self._robot_windows:
+                w = self._apply_robot_model(w, batch)
+                del w["masks_model_input"], w["qpos"]
+            for agg in samples:
+                per_step, _ = step_fn(w, self._generator)
+                for k, v in per_step.items():
+                    agg[k] = agg.get(k, 0.0) + v.mean() / num
+        synced = [{k: float(v) for k, v in agg.items()} for agg in samples]
+        synced.sort(key=lambda d: d.get("psnr", 0.0), reverse=True)
+        return synced[0]
 
     def _eval_epoch(self, loader, cap: Optional[int]):
         """Epoch metrics over the loader's batches, capped at `cap` batches
@@ -301,7 +406,8 @@ class PredictionTrainer:
             return self.copy_baseline()
         train_loader, test_loader = self._setup_data()
         if cfg.dynamics_model_ckpt:
-            self.load_checkpoint(cfg.dynamics_model_ckpt)
+            self.load_checkpoint(cfg.dynamics_model_ckpt,
+                                 finetune="finetune" in cfg.experiment)
             self.logger.info(f"loaded {cfg.dynamics_model_ckpt} at step "
                              f"{self._step}")
         self._resume()

@@ -18,8 +18,24 @@ from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
+from robot_aware_control_tpu_torch.planning.rollout import RolloutEngine
 from robot_aware_control_tpu_torch.training.step import make_eval_step
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
+from torch_chain_cases import (
+    CHAIN_EXPERIMENTS,
+    CHAIN_PLAN,
+    chain_batched_diff,
+    chain_geometry,
+    chain_joints_parity,
+    small_chain_plan_parity,
+)
+from torch_robot_cases import (
+    FinetuneRecordTrainer,
+    finetune_launches,
+    record_renders,
+    recorded_kernel_vs_plain,
+    robot_step_parity,
+)
 from torch_data_cases import (
     RecordTrainer,
     eval_cells,
@@ -590,3 +606,83 @@ def test_gpu_records_trainer_eval_takes_sm90(cuda, tmp_path):
         "conv_lstm_cell": cells, "conv_lstm_cell_sm90": cells,
         "conv_lstm_cell_f32": 0, "capsule_mask_render": 0}
     assert tr._step == 2
+
+
+# ---------------------------------------------------------------- robots
+CHAIN_KEYS = ["baxter", "baxter_right", "fetch", "franka", "kuka", "sawyer",
+              "widowx", "wx250s"]
+
+
+@pytest.mark.parametrize("key", CHAIN_KEYS)
+def test_gpu_chain_geometry_matches_cpu(cuda, key):
+    """FK to 1e-5 m, IK tips to FK-made targets within 1e-5 m of them
+    where the CPU's are and of the CPU's distances, thin and thick masks
+    of the same joints but within 1e-3 px of an edge
+    (tests/torch_chain_cases.py:chain_geometry)."""
+    chain_geometry(cuda, [key])
+
+
+@pytest.mark.parametrize("experiment", CHAIN_EXPERIMENTS)
+def test_gpu_chain_joints_match_cpu(cuda, experiment):
+    """The canonical chain plan's warm-started IK at a rollout's shapes
+    (100 candidates, 5 steps) on the card against the CPU's: tips within
+    1e-5 m, the masks of its joints as the CPU env's but near an edge
+    (tests/torch_chain_cases.py:chain_joints_parity)."""
+    cfg = Config(**dict(CANONICAL, experiment=experiment))
+    engine = RolloutEngine(cfg, device=cuda)
+    N, T, A = cfg.action_candidates, cfg.horizon - 1, cfg.action_dim
+    acts = (torch.randn(T, N, A, generator=torch.Generator().manual_seed(0))
+            * 0.015).clamp(-0.05, 0.05).to(cuda)
+    start_raw = torch.tensor([0.3, 0.0, 0.15, 0.0, 0.0], device=cuda).expand(N, 5)
+    q0 = torch.zeros(N, engine.qpos_dim, device=cuda)
+    chain_joints_parity(engine, start_raw, q0, acts)
+
+
+@pytest.mark.parametrize("experiment", CHAIN_EXPERIMENTS)
+def test_gpu_small_chain_plan_matches_cpu(cuda, monkeypatch, experiment):
+    """A small float32 chain plan, injected noise, at the CPU's robot
+    trajectory: the CPU's plan to 1e-4; the card's own plan clamped."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    small_chain_plan_parity(experiment, cuda)
+
+
+@pytest.mark.parametrize("experiment", CHAIN_EXPERIMENTS)
+def test_gpu_chain_batched_plans_equal_single(cuda, experiment):
+    """get_action_batched of 2 small chain requests equals their single
+    plans bit for bit on the card, and plans launch no mask kernel."""
+    cfg = Config(**dict(CHAIN_PLAN, experiment=experiment))
+    policy = CEMPolicy(cfg, svg.init(cfg, seed=0, device=cuda))
+    kernels.reset_launches()
+    assert chain_batched_diff(policy, experiment, 2) == 0.0
+    assert kernels.launches["capsule_mask_render"] == 0
+
+
+def test_gpu_robot_train_step_matches_cpu(cuda, monkeypatch, tmp_path):
+    """One robot-trainer step (both MLPs, Adam) on the card against the
+    CPU's: losses to 1e-5 relative, parameters as
+    tests/torch_robot_cases.py:robot_step_parity allows."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    robot_step_parity(cuda, str(tmp_path))
+
+
+def test_gpu_finetune_trainer_takes_the_kernels(cuda, tmp_path):
+    """finetune_locobot at the bf16 width of bench.py (batch 4, 12-frame
+    videos) fed by record shards with the locobot bounds: each train
+    window and eval window renders its robot masks through the mask
+    kernel, the eval epoch's cells (best of 3 in the autoregressive pass)
+    all take sm90; the mask kernel equals its plain version bit for bit on
+    the first train window's and eval window's joints."""
+    cfg = Config(**dict(TRAIN, experiment="finetune_locobot", batch_size=4,
+                        test_batch_size=16, video_length=12, n_eval=6, niter=1,
+                        epoch_size=1, eval_interval=1, checkpoint_interval=1,
+                        data_threads=2, log_dir=str(tmp_path), jobname="ft"))
+    write_record_split(str(tmp_path / "train"), 8, cfg, 0)
+    write_record_split(str(tmp_path / "test"), 32, cfg, 1)
+    tr = FinetuneRecordTrainer(cfg, str(tmp_path), cuda)
+    rendered = record_renders(tr)
+    kernels.reset_launches()
+    tr.train()
+    tr.logger.close()
+    assert dict(kernels.launches) == finetune_launches(cfg, 1, 2)
+    recorded_kernel_vs_plain(rendered)

@@ -236,7 +236,8 @@ def test_variant_plans_match_jax(weights, rng, monkeypatch, variant):
 
 def test_constructor_overrides_and_hooks(weights, rng):
     """horizon/opt_iter/action_candidates/topk/init_std override the config
-    as in the JAX constructor; mesh and debug_cem are not ported."""
+    as in the JAX constructor; mesh and debug_cem are not ported; a chain
+    robot's policy plans."""
     cfg = Config(**SERVE_KW)
     model = _model(weights)
     p = CEMPolicy(cfg, model, device="cpu", horizon=4, opt_iter=1,
@@ -249,9 +250,14 @@ def test_constructor_overrides_and_hooks(weights, rng):
         CEMPolicy(cfg, model, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="plot"):
         CEMPolicy(cfg.replace(debug_cem=True), model, device="cpu")
-    with pytest.raises(NotImplementedError, match="kinematic_chain"):
-        CEMPolicy(cfg.replace(experiment="control_franka"), model,
-                  device="cpu")
+    # control_franka plans through the franka's measured chain (7 joints)
+    franka = CEMPolicy(cfg.replace(experiment="control_franka"), model,
+                       device="cpu", horizon=3, opt_iter=1, action_candidates=4,
+                       topk=2)
+    assert franka.engine.qpos_dim == 7
+    plan = franka.get_action(start, goal)
+    assert plan.shape == (2, 2) and np.all(np.isfinite(plan))
+    assert np.all(np.abs(plan) <= 0.05)
 
 
 def test_generate_model_rollouts_matches_jax(weights, rng):

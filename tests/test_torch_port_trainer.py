@@ -203,7 +203,6 @@ def test_argparser_takes_the_jax_flags():
 
 @pytest.mark.parametrize("kw", [dict(model="cdna_det"),
                                 dict(model="svg_vec"),
-                                dict(experiment="finetune_locobot"),
                                 dict(experiment="train_robonet"),
                                 dict(sharded_checkpoint=True)])
 def test_unported_options_raise(tmp_path, kw):
