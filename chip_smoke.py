@@ -189,9 +189,36 @@ Phases, each of which raises on failure:
                 train window's and eval window's joints of each renderer
                 the robot model used; frames/s and
                 the data-wait share beside phase 12's records trainer.
+ 14. families   the other model families (models/svg_vector.py,
+                models/cdna.py), the inverse model and the debug_cem plots:
+                (a) a small float32 plan of svg_vec, det_vec, cdna_det and
+                cdna_robonet on the card equal to the CPU's (1e-4; injected
+                action noise), with its launches; (b) each at the canonical
+                planning config of phase 6 (the JAX defaults' fc-LSTM
+                stacks: rnn_size 256, 2 layers) with seed-0 weights: one
+                warm-up and three timed plans, each finite and shaped,
+                launching the cell 80 times through sm90 (CDNA: 2 cells a
+                model step, g_dim -> g_dim) or never (the vector models),
+                and the mask kernel 10 times; a profiled plan; batched ==
+                single bit for bit at R = 2 and 4 for cdna_det and svg_vec;
+                the sm90 cell held to its plain version on a cdna_det plan's
+                own cell inputs (its second model step, k = 5 and 3) and
+                timed beside it; (c) one canonical cdna_det plan with
+                debug_cem on: the frames its rollout hands save_gif are
+                finite and (48, 128, 3), the gif skipped without imageio;
+                (d) a small float32 train and eval step of each family on
+                the card against the CPU (the vector models with channel
+                dropout, the same keep masks on both), one train step at
+                the training config of bench.py:136-156 for svg_vec and
+                cdna_det (frames/s), and the full-width cdna_det eval step
+                (B = 16) with the cell kernel against its plain version
+                (1.5e-2, sm90 launches counted); (e) the inverse model: one
+                Adam step on the card against the CPU (continuous and
+                discretized heads) and 20 steps at batch 128 whose loss
+                falls.
 
 Prints the card line, one JSON line each of the train, serve, variants,
-data and robots phases and one of kernels (the mask kernel, the sm90 cell at the planner's
+data, robots and families phases and one of kernels (the mask kernel, the sm90 cell at the planner's
 shapes and at det's, the WMMA kernel and the float32 kernel, each with its
 launches on its own path), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -234,6 +261,15 @@ from robot_aware_control_tpu_torch.training.trainer import PredictionTrainer
 # the mask kernel's cases, shared with its GPU and CPU tests
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
+from torch_family_cases import (  # noqa: E402
+    FAMILIES,
+    debug_cem_frames,
+    family_fields,
+    inverse_learns,
+    inverse_step_parity,
+)
+from torch_family_cases import small_plan_parity as family_plan_parity  # noqa: E402
+from torch_family_cases import train_step_parity as family_train_parity  # noqa: E402
 from torch_mask_cases import MASK_CASES, mask_case  # noqa: E402
 from torch_serve_cases import (  # noqa: E402
     cell_invariance,
@@ -1012,13 +1048,14 @@ def check_det_cells(dev):
     return errs
 
 
-def variant_plans(name, n_timed=3):
-    """The canonical planner with the variant's fields: one warm-up and
-    n_timed timed plans, each finite, shaped and launching `plan_launches`;
-    then one profiled plan. Returns the config, the policy and the timings,
-    the launches of the plans (counts zeroed just before them) and the
-    profile."""
-    cfg = Config(**dict(CANONICAL, **VARIANTS[name]))
+def variant_plans(name, n_timed=3, fields=None):
+    """The canonical planner with the variant's fields (`fields`, else
+    VARIANTS[name]): one warm-up and n_timed timed plans, each finite,
+    shaped and launching `plan_launches`; then one profiled plan. Returns
+    the config, the policy and the timings, the launches of the plans
+    (counts zeroed just before them) and the profile."""
+    cfg = Config(**dict(CANONICAL, **(VARIANTS[name] if fields is None
+                                      else fields)))
     policy = CEMPolicy(cfg, get_model(cfg).init(cfg, seed=0, device="cuda"))
     start, goal = start_goal(np.random.RandomState(0))
     want = plan_launches(cfg)
@@ -1271,11 +1308,13 @@ def f32_plan_summary(latency, launches, prof) -> dict:
     return out
 
 
-def variant_train_step(name, dev):
+def variant_train_step(name, dev, fields=None):
     """One train step at the training config of bench.py:136-156 (batch
-    128, window 6, bf16, remat conv) with the variant's fields: one warm-up
-    and 3 timed steps (host clock, each ending in a sync), no hand kernel."""
-    cfg = Config(**dict(TRAIN, **TRAIN_VARIANTS[name]))
+    128, window 6, bf16, remat conv) with the variant's fields (`fields`,
+    else TRAIN_VARIANTS[name]): one warm-up and 3 timed steps (host clock,
+    each ending in a sync), no hand kernel."""
+    cfg = Config(**dict(TRAIN, **(TRAIN_VARIANTS[name] if fields is None
+                                  else fields)))
     model = get_model(cfg).init(cfg, seed=0, device=dev, train=True)
     step, _ = make_train_step(cfg, model)
     t0 = time.perf_counter()
@@ -1807,6 +1846,127 @@ def check_robots(dev, records_fps):
     return out
 
 
+# -------------------------------------------------------------- families
+def check_cdna_cells(policy, start, goal, dev):
+    """Phase 14 (b): one canonical CDNA plan with the cell wrapper keeping
+    the inputs of its first model steps' cells; the second step's (cell0 k
+    = 5 and cell1 k = 3, states no longer zero) each run once more through
+    the kernel (one sm90 launch each, not counted on the plan's path) and
+    held to its plain version, and timed beside it."""
+    calls = []
+    wrapper = kernels.conv_lstm_cell
+
+    def record(x, h, c, w, b):
+        if len(calls) < 4:
+            calls.append([t.clone() for t in (x, h, c, w, b)])
+        return wrapper(x, h, c, w, b)
+
+    kernels.conv_lstm_cell = record
+    try:
+        policy.get_action(start, goal, ep_num=3, step=0)
+    finally:
+        kernels.conv_lstm_cell = wrapper
+    rows = []
+    for args in calls[2:]:
+        x, h, c, w, b = args
+        if not kernels.takes_sm90(x, h, c, w):
+            raise AssertionError(f"CDNA cell {tuple(x.shape)} k={w.shape[0]} "
+                                 "does not take sm90")
+        before = kernels.launches["conv_lstm_cell_sm90"]
+        got = wrapper(*args)
+        if kernels.launches["conv_lstm_cell_sm90"] - before != 1:
+            raise AssertionError("the CDNA cell did not launch sm90 once")
+        err = cell_err(got, kernels.conv_lstm_cell_plain(*args),
+                       CELL_TOL[torch.bfloat16])
+        ms = cuda_ms(lambda: wrapper(*args))
+        plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(*args))
+        rows.append(dict(shape=list(x.shape), k=int(w.shape[0]),
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         h_absmax=float(h.float().abs().max())))
+    print("CDNA cells at a plan's own state (second model step), sm90 vs "
+          "plain: " + "; ".join(
+              f"k={r['k']} {r['shape']}: max |diff| {r['max_abs_err']:.3g} "
+              f"(tolerance {CELL_TOL[torch.bfloat16]}), {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, |h| <= {r['h_absmax']:.3g}" for r in rows))
+    return rows
+
+
+def check_debug_cem(cfg, model, d):
+    """Phase 14 (c): one canonical plan with debug_cem on: the frames its
+    rollout hands save_gif are horizon-1 finite (H, 2W, 3) images."""
+    policy = CEMPolicy(cfg.replace(debug_cem=True, log_dir=d), model)
+    start, goal = start_goal(np.random.RandomState(0))
+    t0 = time.perf_counter()
+    plan, frames, path = debug_cem_frames(policy, start, goal, ep_num=1)
+    seconds = time.perf_counter() - t0
+    shape = (cfg.image_height, 2 * cfg.image_width, 3)
+    if (plan.shape != (cfg.horizon - 1, 2) or len(frames) != cfg.horizon - 1
+            or any(f.shape != shape or not np.all(np.isfinite(f))
+                   for f in frames)):
+        raise AssertionError(f"debug_cem: plan {plan.shape}, frames "
+                             f"{[f.shape for f in frames]}")
+    print(f"debug_cem ({cfg.model}): plan and rollout plot {seconds:.3f} s, "
+          f"{len(frames)} finite frames of {shape}; "
+          + (f"wrote {os.path.basename(path)}" if path else
+             "gif skipped: imageio does not import here"))
+    return dict(seconds=seconds, frames=len(frames), gif_written=bool(path))
+
+
+def check_families(dev):
+    """Phase 14 (see the module docstring). Returns its JSON line's dict."""
+    out = {"plans": {}, "small_plan_parity": {}, "train_parity": {},
+           "train": {}}
+    for name in FAMILIES:
+        err, launched = family_plan_parity(name, dev)
+        out["small_plan_parity"][name] = dict(err=err, launches=launched)
+        print(f"small f32 {name} plan, GPU vs CPU: max |diff| = {err:.3g} "
+              f"(tolerance {PLAN_TOL}); launches {launched}")
+    policies = {}
+    for name in FAMILIES:
+        cfg, policy, plans = variant_plans(
+            name, fields=family_fields(name, small=False))
+        if name in ("cdna_det", "svg_vec"):
+            checks = plan_checks(policy, repeats=2, batch_sizes=(2, 4))
+            plans["batched_diff"] = checks["batched"]
+            print(f"{name} plans: one request twice, one plan; batched == "
+                  "single bit for bit at R = 2 and 4")
+        out["plans"][name] = plans
+        policies[name] = policy
+    start, goal = start_goal(np.random.RandomState(0))
+    out["cdna_cells"] = check_cdna_cells(policies["cdna_det"], start, goal, dev)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        out["debug_cem"] = check_debug_cem(policies["cdna_det"].cfg,
+                                           policies["cdna_det"].model, d)
+    del policies
+    torch.cuda.empty_cache()
+    for name in FAMILIES:
+        errs, _ = family_train_parity(name, dev)
+        out["train_parity"][name] = errs
+        print(f"small f32 {name} train step, GPU vs CPU: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (tolerance {TRAIN_TOL}; gradients {GRAD_TOL_DEVICES} of each "
+            "leaf's norm)")
+    for name in ("svg_vec", "cdna_det"):
+        out["train"][name] = variant_train_step(
+            name, dev, fields=family_fields(name, small=False))
+    result = eval_kernel_vs_plain(dev, model="cdna_det")
+    out["cdna_eval_kernel_vs_plain"] = result
+    for mode, r in result.items():
+        print(f"full-width bf16 cdna_det eval step ({mode}), kernel vs plain "
+              f"cell: predictions {r['preds']:.3g}, metrics {r['metrics']:.3g} "
+              f"of their max (tolerance {EVAL_TOL}); "
+              f"{r['launched']['conv_lstm_cell_sm90']} sm90 launches")
+    out["inverse"] = dict(
+        step_parity={str(disc): inverse_step_parity(dev, discretized=disc)
+                     for disc in (False, True)},
+        losses_batch_128=inverse_learns(dev))
+    losses = out["inverse"]["losses_batch_128"]
+    print(f"inverse model: one Adam step GPU vs CPU {out['inverse']['step_parity']}"
+          f"; 20 steps at batch 128, loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1905,6 +2065,15 @@ def main() -> int:
         cell_entry[f"launches_{exp}"] = r["launches"]["conv_lstm_cell_sm90"]
         mask_entry[f"launches_{exp}"] = r["launches"]["capsule_mask_render"]
     print(json.dumps({"robots": dict(robots, card=card)}))
+
+    # the other model families, the inverse model and the debug_cem plots
+    phase("families")
+    families = check_families(dev)
+    for name, r in families["plans"].items():
+        cell_entry[f"launches_{name}"] = r["launches"]["conv_lstm_cell_sm90"]
+        mask_entry[f"launches_{name}"] = r["launches"]["capsule_mask_render"]
+    cell_entry["cdna_state"] = families["cdna_cells"]
+    print(json.dumps({"families": dict(families, card=card)}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

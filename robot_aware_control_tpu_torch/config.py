@@ -53,14 +53,21 @@ class Config:
     eval_interval: int = 5
     # eval batches per epoch metric pass; 0 = the full eval set
     eval_batches: int = 0
-    model: str = "svg"
+    # the vector models' fc-LSTM stacks (models/svg_vector.py)
+    rnn_size: int = 256
+    prior_rnn_layers: int = 2
+    posterior_rnn_layers: int = 2
+    predictor_rnn_layers: int = 2
+    model: str = "svg"  # svg|det|copy|svg_vec|det_vec|cdna_det|cdna_robonet
     image_width: int = 64
     image_height: int = 48
     channels: int = 3
     z_dim: int = 10
     g_dim: int = 128
     action_dim: int = 2
+    action_enc_dim: int = 2
     robot_dim: int = 6
+    robot_enc_dim: int = 6
     robot_joint_dim: int = 7
     beta: float = 0.0001
     last_frame_skip: bool = False
@@ -80,6 +87,7 @@ class Config:
     # checkpoint
     learned_robot_model: bool = False
     robot_model_ckpt: Optional[str] = None
+    cdna_kernel_size: int = 5
     lstm_group_norm: bool = False
     # the hand-written ConvLSTM cell kernel on inference paths (planning,
     # eval); training runs the autograd cell (the kernel has no backward)
@@ -95,6 +103,9 @@ class Config:
     # the reference's posterior re-encodes the current frame; False keeps
     # the standard SVG-LP semantics (posterior sees the next frame)
     posterior_use_current_frame: bool = False
+    # channel dropout of the vector encoder's stages in training (svg_vec,
+    # det_vec); None: off
+    dropout: Optional[float] = None
 
     # --- dataset ---
     data_threads: int = 5
@@ -176,7 +187,8 @@ class Config:
         if self.plan_quantize != "none":
             raise NotImplementedError(
                 f"plan_quantize={self.plan_quantize!r}: int8 planning is not "
-                "ported yet (ROADMAP.md, section 1 item 5); use 'none'")
+                "ported yet (ops/quant.py; ROADMAP.md, section 1 item 6); use "
+                "'none'")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

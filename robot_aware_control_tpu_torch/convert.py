@@ -1,5 +1,6 @@
-"""Carry SVG and det parameters, BatchNorm statistics and optimizer state
-between the JAX package's layout and the port's.
+"""Carry model parameters, BatchNorm statistics and optimizer state
+between the JAX package's layout and the port's, for every family (svg,
+det, svg_vec, det_vec, cdna_det, cdna_robonet) and the inverse model.
 
 The JAX models keep parameters and BatchNorm statistics as nested dicts
 (and lists, for VGG stacks) of arrays: convolutions `{"w": HWIO, "b"}`,
@@ -11,7 +12,9 @@ checkpoints flatten them to keys that `jax.tree_util.keystr` gives, such as
 module paths:
 
   * conv weights HWIO <-> OIHW (`F.conv2d`'s layout), linear weights
-    (in, out) <-> (out, in) (`F.linear`'s);
+    (in, out) <-> (out, in) (`F.linear`'s); the vector decoder's transpose
+    conv (`upc1`) too, whose module flips the kernel at use
+    (ops/nn.py:ConvTranspose);
   * ConvLSTM gate weights stay HWIO (k, k, in + hid, 4 hid), the CUDA
     cell's layout, so they are packed once here and never per launch;
   * BatchNorm scale/bias/mean/var <-> weight/bias/running_mean/running_var,
@@ -37,8 +40,10 @@ import torch
 from torch import nn
 
 from robot_aware_control_tpu_torch.config import Config
+from robot_aware_control_tpu_torch.models.cdna import CDNA, CDNARobonet
 from robot_aware_control_tpu_torch.models.det import Det
 from robot_aware_control_tpu_torch.models.svg import SVG
+from robot_aware_control_tpu_torch.models.svg_vector import DetVec, SVGVec
 from robot_aware_control_tpu_torch.ops.lstm import ConvLSTMCell, GroupNorm
 from robot_aware_control_tpu_torch.ops.nn import BatchNorm, Linear
 from robot_aware_control_tpu_torch.utils.device import resolve_device
@@ -99,7 +104,7 @@ def _state_dict(leaves) -> dict:
 
 def svg_state_dict(params, bn_state) -> dict:
     """A JAX model's (params, bn_state) -> the port's state dict (float32);
-    svg and det trees alike."""
+    the trees of every family alike."""
     return _state_dict(list(_leaves(params)) + list(_leaves(bn_state)))
 
 
@@ -204,18 +209,46 @@ def _from_jax_trees(model: nn.Module, params, bn_state):
     return model.eval().requires_grad_(False)
 
 
+# the port's model class of each family
+MODEL_CLASSES = {"svg": SVG, "det": Det, "svg_vec": SVGVec, "det_vec": DetVec,
+                 "cdna_det": CDNA, "cdna_robonet": CDNARobonet}
+
+
+def model_from_jax(cfg: Config, params, bn_state, device="cuda") -> nn.Module:
+    """An inference-mode model of cfg.model on `device` holding the JAX
+    parameters (a strict load: every port parameter and statistic must be
+    given)."""
+    model = MODEL_CLASSES[cfg.model](cfg, device=resolve_device(device))
+    return _from_jax_trees(model, params, bn_state)
+
+
 def svg_from_jax(cfg: Config, params, bn_state, device="cuda") -> SVG:
-    """An inference-mode SVG on `device` holding the JAX parameters
-    (a strict load: every port parameter and statistic must be given)."""
-    return _from_jax_trees(SVG(cfg, device=resolve_device(device)), params,
-                           bn_state)
+    return model_from_jax(cfg.replace(model="svg"), params, bn_state, device)
 
 
 def det_from_jax(cfg: Config, params, bn_state, device="cuda") -> Det:
-    """An inference-mode det model on `device` holding the JAX parameters
-    (a strict load)."""
-    return _from_jax_trees(Det(cfg, device=resolve_device(device)), params,
-                           bn_state)
+    return model_from_jax(cfg.replace(model="det"), params, bn_state, device)
+
+
+def svg_vec_from_jax(cfg: Config, params, bn_state, device="cuda") -> SVGVec:
+    return model_from_jax(cfg.replace(model="svg_vec"), params, bn_state,
+                          device)
+
+
+def det_vec_from_jax(cfg: Config, params, bn_state, device="cuda") -> DetVec:
+    return model_from_jax(cfg.replace(model="det_vec"), params, bn_state,
+                          device)
+
+
+def cdna_from_jax(cfg: Config, params, bn_state, device="cuda") -> CDNA:
+    return model_from_jax(cfg.replace(model="cdna_det"), params, bn_state,
+                          device)
+
+
+def cdna_robonet_from_jax(cfg: Config, params, bn_state,
+                          device="cuda") -> CDNARobonet:
+    return model_from_jax(cfg.replace(model="cdna_robonet"), params, bn_state,
+                          device)
 
 
 def robot_mlp_state_dict(tree) -> dict:

@@ -1,24 +1,22 @@
 """Model registry keyed by the reference's --model flag values
-(reference: src/config/__init__.py:225, src/prediction/trainer.py:99-107).
-The port has svg, det and the parameter-free copy baseline."""
+(reference: src/config/__init__.py:225, src/prediction/trainer.py:99-107),
+every family of the JAX package's registry."""
 
 from __future__ import annotations
 
 from robot_aware_control_tpu_torch.config import Config
-from robot_aware_control_tpu_torch.models import copy_model, det, svg
+from robot_aware_control_tpu_torch.models import cdna, copy_model, det, svg, svg_vector
 
-_MODELS = {"svg": svg, "det": det, "copy": copy_model}
-# the JAX package's other families (models/registry.py), not ported yet
-_NOT_PORTED = ("svg_vec", "det_vec", "cdna_det", "cdna_robonet")
+_MODELS = {"svg": svg, "det": det, "copy": copy_model, "svg_vec": svg_vector,
+           "det_vec": svg_vector.det, "cdna_det": cdna,
+           "cdna_robonet": cdna.robonet}
 
 
 def get_model(cfg: Config):
-    """Returns the module of cfg.model: init/init_carry for svg and det,
-    step for copy."""
+    """Returns the module (or module-like class) of cfg.model: init and
+    init_carry for the learned models, step for copy."""
     if cfg.model in _MODELS:
         return _MODELS[cfg.model]
-    if cfg.model in _NOT_PORTED:
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
     raise ValueError(f"unknown model {cfg.model!r}")
 
 

@@ -23,6 +23,13 @@ never takes the kernel, as the JAX package keeps it on the XLA path
 followed by its own GroupNorm of the 4 hid gates, and a third GroupNorm on
 c'. It runs on PyTorch's convolutions and GroupNorm in training and at
 inference alike.
+
+The vector models (models/svg_vector.py) step fully-connected LSTMs
+(`lstm.py:164-226`; reference: lstm.py:10-106): `LSTM` (embed -> LSTMCells
+-> Linear + tanh head) and `GaussianLSTM` (mu and logvar heads, the
+reparameterized draw). Their cells take torch's gate order i, f, g, o,
+unlike the conv cell's i, f, o, g, and run as plain products: the JAX
+package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from robot_aware_control_tpu_torch.ops import kernels
-from robot_aware_control_tpu_torch.ops.nn import Conv2d
+from robot_aware_control_tpu_torch.ops.nn import Conv2d, Linear
 
 
 def conv_lstm_cell_autograd(x, h, c, w, b):
@@ -180,3 +187,82 @@ class GaussianConvLSTM(nn.Module):
         logvar = self.logvar(h)
         return (reparameterize(mu, logvar, generator, eps), mu, logvar,
                 new_state)
+
+
+# ---------------------------------------------------------------------------
+# fully-connected LSTM (vector models)
+
+
+class LSTMCell(nn.Module):
+    """`lstm.py:lstm_cell`: gates = ih(x) + hh(h) in x's type, torch's gate
+    order i, f, g, o; c' = sig(f) c + sig(i) tanh(g), h' = sig(o) tanh(c'),
+    with c cast to x's type."""
+
+    def __init__(self, din: int, dhid: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.ih = Linear(din, 4 * dhid, dtype, device)
+        self.hh = Linear(dhid, 4 * dhid, dtype, device)
+
+    def forward(self, x, state):
+        """state = (h, c). Returns (h_new, (h_new, c_new))."""
+        h, c = state
+        g = self.ih(x) + self.hh(h.to(x.dtype))
+        i, f, gc, o = g.chunk(4, -1)
+        c_new = torch.sigmoid(f) * c.to(x.dtype) + torch.sigmoid(i) * torch.tanh(gc)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        return h_new, (h_new, c_new)
+
+
+class _LSTMStack(nn.Module):
+    def __init__(self, din: int, dhid: int, n_layers: int, dtype, device):
+        super().__init__()
+        self.embed = Linear(din, dhid, dtype, device)
+        self.cells = nn.ModuleList(
+            LSTMCell(dhid, dhid, dtype, device) for _ in range(n_layers))
+
+    def _stack(self, x, state):
+        h = self.embed(x)
+        new_state = []
+        for cell, s in zip(self.cells, state):
+            h, s = cell(h, s)
+            new_state.append(s)
+        return h, tuple(new_state)
+
+
+class LSTM(_LSTMStack):
+    """Embed -> n LSTMCells -> Linear + tanh (`lstm.py:lstm_apply`)."""
+
+    def __init__(self, din: int, dout: int, dhid: int, n_layers: int,
+                 dtype=torch.float32, device=None):
+        super().__init__(din, dhid, n_layers, dtype, device)
+        self.out = Linear(dhid, dout, dtype, device)
+
+    def forward(self, x, state):
+        """Returns (y, new_state)."""
+        h, new_state = self._stack(x, state)
+        return torch.tanh(self.out(h)), new_state
+
+
+class GaussianLSTM(_LSTMStack):
+    """Embed -> n LSTMCells -> mu and logvar heads, z reparameterized
+    (`lstm.py:gaussian_lstm_apply`)."""
+
+    def __init__(self, din: int, dout: int, dhid: int, n_layers: int,
+                 dtype=torch.float32, device=None):
+        super().__init__(din, dhid, n_layers, dtype, device)
+        self.mu = Linear(dhid, dout, dtype, device)
+        self.logvar = Linear(dhid, dout, dtype, device)
+
+    def forward(self, x, state, generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
+        """Returns (z, mu, logvar, new_state); eps (B, dout) float32 replaces
+        the generator's draw."""
+        h, new_state = self._stack(x, state)
+        mu, logvar = self.mu(h), self.logvar(h)
+        return reparameterize(mu, logvar, generator, eps), mu, logvar, new_state
+
+
+def lstm_zero_state(batch, dhid, n_layers, dtype=torch.float32, device=None):
+    """Zero (h, c) of each of the n cells (`lstm.py:lstm_zero_state`)."""
+    z = lambda: torch.zeros(batch, dhid, dtype=dtype, device=device)
+    return tuple((z(), z()) for _ in range(n_layers))

@@ -47,24 +47,71 @@ def conv_rows(rows: Optional[int]):
         _CONV_ROWS.reset(token)
 
 
-class Conv2d(nn.Module):
-    """SAME-padded stride-1 convolution, NHWC in and out."""
+def same_pads(size: int, k: int, stride: int):
+    """XLA's SAME padding of one spatial axis: (low, high), the odd pixel
+    at the high end (a stride-2 convolution of an even map pads 1, 2 for
+    k = 5 and 0, 1 for k = 3, where torch's symmetric padding would not)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, cin: int, cout: int, k: int, bias: bool = True,
-                 dtype=torch.float32, device=None):
+
+class Conv2d(nn.Module):
+    """Convolution, NHWC in and out: SAME padding as XLA pads it (the
+    default) or VALID, stride 1 unless given, a square kernel of size `k`
+    or a (kh, kw) one."""
+
+    def __init__(self, cin: int, cout: int, k, bias: bool = True,
+                 dtype=torch.float32, device=None, stride: int = 1,
+                 padding: str = "same"):
         super().__init__()
+        kh, kw = (k, k) if isinstance(k, int) else k
         self.weight = nn.Parameter(
-            torch.empty(cout, cin, k, k, dtype=dtype, device=device))
+            torch.empty(cout, cin, kh, kw, dtype=dtype, device=device))
         self.bias = (nn.Parameter(torch.empty(cout, dtype=dtype, device=device))
                      if bias else None)
+        self.stride = stride
+        self.padding = padding
 
     def forward(self, x):
         rows = _CONV_ROWS.get()
         if rows is not None and x.shape[0] > rows:
             return torch.cat([self(part) for part in x.split(rows)])
         b = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
-                     padding=self.weight.shape[-1] // 2)
+        kh, kw = self.weight.shape[-2:]
+        xc = x.permute(0, 3, 1, 2)
+        pad = (0, 0)
+        if self.padding == "same":
+            ph, pw = (same_pads(n, k, self.stride)
+                      for n, k in zip(x.shape[1:3], (kh, kw)))
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                pad = (ph[0], pw[0])
+            else:
+                xc = F.pad(xc, pw + ph)
+        y = F.conv2d(xc, self.weight.to(x.dtype), b, stride=self.stride,
+                     padding=pad)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """The stride-1 VALID transpose convolution of a vector to a (kh, kw)
+    map (JAX `encoders.py:_conv_transpose_valid`): x (B, cin) -> (B, kh,
+    kw, cout). The weight is the JAX kernel HWIO (kh, kw, cin, cout) in
+    `Conv2d`'s OIHW order, as every convolution's. `lax.conv_transpose`
+    does not flip its kernel and `F.conv_transpose2d` does, so the forward
+    flips it spatially: out[:, i, j] = x @ w_jax[kh-1-i, kw-1-j]."""
+
+    def __init__(self, cin: int, cout: int, k, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        kh, kw = (k, k) if isinstance(k, int) else k
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin, kh, kw, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.empty(cout, dtype=dtype, device=device))
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype).permute(1, 0, 2, 3).flip(2, 3)
+        y = F.conv_transpose2d(x[:, :, None, None], w, self.bias.to(x.dtype))
         return y.permute(0, 2, 3, 1)
 
 
@@ -120,6 +167,25 @@ def apply_batch_stats(stats):
                              + BN_MOMENTUM * var)
 
 
+def leaky_relu(x, slope: float = 0.2):
+    """LeakyReLU(0.2), the VGG blocks' activation (JAX `nn.leaky_relu`)."""
+    return F.leaky_relu(x, slope)
+
+
+class MLPEncoder(nn.Module):
+    """Linear -> Tanh -> Linear, hidden 32 (JAX `nn.mlp_encoder`;
+    reference: src/prediction/models/base.py:5-23)."""
+
+    def __init__(self, din: int, dout: int, hidden: int = 32,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.l1 = Linear(din, hidden, dtype, device)
+        self.l2 = Linear(hidden, dout, dtype, device)
+
+    def forward(self, x):
+        return self.l2(torch.tanh(self.l1(x)))
+
+
 def max_pool2(x):
     """2x2 max pool, stride 2 (torch MaxPool2d(2, 2)), NHWC."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
@@ -141,7 +207,7 @@ class VGGLayer(nn.Module):
         self.bn = BatchNorm(cout, device=device)
 
     def forward(self, x, stats: Optional[list] = None):
-        return F.leaky_relu(self.bn(self.conv(x), stats), 0.2)
+        return leaky_relu(self.bn(self.conv(x), stats))
 
 
 class VGGStack(nn.Sequential):

@@ -23,7 +23,15 @@ the top-K by reward and refits. Preserved semantics:
 Random draws come from a `torch.Generator` on the device per request,
 seeded with cfg.seed + 7919 * ep_num + step as the JAX package seeds its
 key: per iteration the action noise, then per chunk of candidates the
-prior's noise of each model step (none for det, which has no prior).
+prior's noise of each model step (none for the deterministic families,
+which have no prior).
+
+With cfg.debug_cem, `get_action` rolls the final plan out once more with
+its frames (`TrajectorySampler.generate_model_rollouts(ret_obs=True)`) and
+writes them beside the last goal frame as
+`<log_dir>/debug_cem_ep<ep>_step<step>.gif` (`training/plot.save_gif`,
+which writes nothing without imageio), as the JAX policy's
+`_plot_rollouts` does.
 
 `get_action_batched` plans R requests together: per iteration one rollout
 of R x N candidates (R x chunk with chunking) through the same kernels,
@@ -39,6 +47,8 @@ chip_smoke.py).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -46,8 +56,11 @@ from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models.registry import is_stochastic
 from robot_aware_control_tpu_torch.planning.rollout import (
     RolloutEngine,
+    TrajectorySampler,
     request_inputs,
 )
+from robot_aware_control_tpu_torch.training import plot
+from robot_aware_control_tpu_torch.training.step import prior_shape
 from robot_aware_control_tpu_torch.utils.device import resolve_device
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 
@@ -65,10 +78,8 @@ class CEMPolicy:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: candidates sharded over several GPUs wait for the "
-                "parallel layouts (ROADMAP.md, section 1 item 10)")
-        if cfg.debug_cem:
-            raise NotImplementedError(
-                "debug_cem: the rollout plots wait for training/plot.py")
+                "parallel layouts (parallel/mesh.py; ROADMAP.md, section 1 "
+                "item 7)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model
@@ -143,7 +154,7 @@ class CEMPolicy:
         gens = [p[1] for p in preps]
         mean = torch.stack([p[2] for p in preps])
         std = torch.stack([p[3] for p in preps])
-        prior = (chunk, cfg.feat_height, cfg.feat_width, cfg.z_dim)
+        prior = prior_shape(cfg, chunk)
         stochastic = is_stochastic(cfg)
         for i in range(self.opt_iter):
             eps = torch.stack([noise[i] if noise is not None else torch.randn(
@@ -199,7 +210,10 @@ class CEMPolicy:
                     self.action_dim)
             if tuple(noise.shape) != want:
                 raise ValueError(f"noise must be {want}, got {tuple(noise.shape)}")
-        return self._plan([prep], noise)[0].cpu().numpy()
+        mean = self._plan([prep], noise)[0].cpu().numpy()
+        if self.cfg.debug_cem:
+            self._plot_rollouts(mean, start, goal, ep_num, step)
+        return mean
 
     def get_action_batched(self, starts, goals, ep_nums=None, steps=None,
                            opt_trajs=None):
@@ -222,6 +236,26 @@ class CEMPolicy:
         reqs += [reqs[-1]] * ((1 << (R - 1).bit_length()) - R)
         preps = [self._host_prep(*r) for r in reqs]
         return self._plan(preps)[:R].cpu().numpy()
+
+    def _plot_rollouts(self, plan, start: State, goal: DemoGoalState,
+                       ep_num, step):
+        """The final plan's rollout beside the last goal frame as a gif
+        (JAX `cem.py:_plot_rollouts`; reference: cem.py:113-179). The
+        rollout draws the prior's noise from a generator seeded with
+        cfg.seed, as the JAX sampler's default key. Returns the frames
+        handed to `save_gif`, (horizon-1) x (H, 2 W, C)."""
+        acts = self.pad(torch.tensor(plan)[None]).numpy()
+        sampler = TrajectorySampler(self.cfg, self.model, engine=self.engine)
+        out = sampler.generate_model_rollouts(acts, start, goal, ret_obs=True)
+        goal_img = np.asarray(goal.imgs[-1], np.float32)
+        if goal_img.max() > 1.5:
+            goal_img = goal_img / 255.0
+        frames = [np.concatenate([f, goal_img], axis=1) for f in out["obs"][0]]
+        os.makedirs(self.cfg.log_dir, exist_ok=True)
+        plot.save_gif(os.path.join(self.cfg.log_dir,
+                                   f"debug_cem_ep{ep_num}_step{step}.gif"),
+                      frames, fps=2)
+        return frames
 
 
 def _demo_prefix(opt_traj, T, action_dim, device):

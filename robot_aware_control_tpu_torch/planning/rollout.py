@@ -3,7 +3,8 @@
 Counterpart of `robot_aware_control_tpu/planning/rollout.py:RolloutEngine`
 (reference: src/cem/trajectory_sampler.py:36-199): eef integration,
 batched IK, robot masks (and eef heatmaps for heatmap-conditioned models),
-T model steps of the configured family (svg or det), compositing and cost,
+T model steps of the configured family (svg, det, svg_vec, det_vec,
+cdna_det or cdna_robonet), compositing and cost,
 with the candidates as the batch axis and a Python loop over the horizon.
 The locobot path takes the analytic IK and the capsule renderer (its CUDA
 kernel); control_franka and control_wx250s the robot's own measured chain
@@ -220,8 +221,10 @@ class RolloutEngine:
         """Inputs as in the class docstring, all on the engine's device;
         goal_imgs etc. are pre-indexed per step (goal_idx = min(t, G-1)).
         With robot_cost_weight != 0, goal_states add a per-step robot-state
-        cost. `eps_prior` (T, R * n, fh, fw, z_dim) float32 replaces the
-        prior's draws from `generator`. Returns sum_cost (R * n,) [and obs
+        cost. `eps_prior` (T, R * n, fh, fw, z_dim) float32 ((T, R * n,
+        z_dim) for svg_vec: training/step.py:prior_shape) replaces the
+        prior's draws from `generator`. CDNA warps each step's own input
+        image (no context frame), as the JAX rollout steps it. Returns sum_cost (R * n,) [and obs
         (T, R * n, H, W, C) when ret_obs]."""
         cfg = self.cfg
         if start_img.dim() == 3:  # one request
@@ -315,10 +318,11 @@ class TrajectorySampler:
     "sum_cost" (N,), "optimal_sum_cost" with opt_traj, and "topk_idx"/"obs"
     (and "optimal_obs") when ret_obs."""
 
-    def __init__(self, cfg: Config, model, device="cuda", **engine_kw):
+    def __init__(self, cfg: Config, model, device="cuda", engine=None,
+                 **engine_kw):
         self.cfg = cfg
         self.model = model
-        self.engine = RolloutEngine(cfg, device=device, **engine_kw)
+        self.engine = engine or RolloutEngine(cfg, device=device, **engine_kw)
         self.device = self.engine.device
 
     def generate_model_rollouts(self, action_sequences, start: State,

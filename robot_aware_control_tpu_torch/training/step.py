@@ -8,8 +8,9 @@ batch, ground truth at the first step), robot-pixel blackout of the model
 inputs when a dontcare loss or black_robot_input is active, future-mask
 and future-heatmap conditioning (duplicated at the target step), the skip
 frozen after n_past frames, the composite with the un-blacked input,
-loss = Σ recon + β Σ KL (svg; det has no KL term), metrics divided by
-n_future. The copy baseline has an eval step alone. The JAX step is one
+loss = Σ recon + β Σ KL (svg and svg_vec; the deterministic families have
+no KL term), metrics divided by n_future; CDNA warps the window's context
+frame x[n_past - 1]. The copy baseline has an eval step alone. The JAX step is one
 `lax.scan`; here a Python loop over the window's steps queues the same
 work, and the device arrays never come back to the host inside a step.
 
@@ -21,8 +22,9 @@ the step in the backward pass, "conv" saves the convolutions' outputs and
 recomputes the rest (selective checkpointing), as `step.py:264-281` does
 with `jax.checkpoint`. Recomputation replays the forward, so nothing in a
 step draws random numbers or updates state: the draws of a window come
-from `draw_noise` before it, and BatchNorm's updates are returned by each
-step and applied once after the backward pass.
+from `draw_noise` before it (the vector models' dropout masks too), and
+BatchNorm's updates are returned by each step and applied once after the
+backward pass.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from robot_aware_control_tpu_torch.models.registry import get_model, is_stochast
 from robot_aware_control_tpu_torch.models.svg import compute_dtype
 from robot_aware_control_tpu_torch.ops import losses as L
 from robot_aware_control_tpu_torch.ops import metrics as M
+from robot_aware_control_tpu_torch.ops.encoders import SKIP_CHANNELS
 from robot_aware_control_tpu_torch.ops.nn import apply_batch_stats
 
 
@@ -90,18 +93,27 @@ _DET_KW = ("skip", "use_curr_skip", "train")
 
 
 def _model_step(cfg: Config, model, carry, x_j, m_in, r_in, hm_in, a_j,
-                generator=None, sample_mean=False, **kw):
-    """Dispatch one prediction step to the configured model family, svg or
-    det. `kw` passes the posterior inputs, skips, `train`,
-    `force_use_prior` and `noise` on; det takes the skips and `train`
-    alone, and its `out` carries None for the posterior's and prior's
-    statistics (JAX `step.py:81-88`). Returns (out, new_carry)."""
-    if cfg.model == "det":
+                generator=None, sample_mean=False, context_image=None,
+                drop=None, **kw):
+    """Dispatch one prediction step to the configured model family (JAX
+    `step.py:59-101`). `kw` passes the posterior inputs, skips, `train`,
+    `force_use_prior` and `noise` on. The deterministic families take the
+    skips and `train` alone, det_vec its current frame's dropout masks
+    (`drop[0]`) and CDNA its `context_image`; their `out` carries None for
+    the posterior's and prior's statistics. svg_vec takes no heatmap of the
+    next frame, and both frames' dropout masks. Returns (out, new_carry)."""
+    if not is_stochastic(cfg):
+        extra = {k: kw[k] for k in _DET_KW if k in kw}
+        if cfg.model == "det_vec":
+            extra["drop"] = None if drop is None else drop[0]
+        elif cfg.model != "det":
+            extra["context_image"] = context_image
         out, carry = model(carry, image=x_j, mask=m_in, robot=r_in,
-                           action=a_j, **{k: kw[k] for k in _DET_KW if k in kw})
+                           action=a_j, **extra)
         return dict(out, mu=None, logvar=None, mu_p=None, logvar_p=None), carry
-    if cfg.model != "svg":
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
+    if cfg.model == "svg_vec":
+        kw.pop("next_heatmap", None)
+        kw["drop"] = drop
     return model(carry, image=x_j, mask=m_in, robot=r_in, heatmap=hm_in,
                  action=a_j, generator=generator, sample_mean=sample_mean,
                  **kw)
@@ -149,19 +161,43 @@ def _recon_loss(cfg: Config, prediction, target, mask, batch_weight=None):
     raise NotImplementedError(kind)
 
 
+def prior_shape(cfg: Config, batch: int) -> tuple:
+    """The shape of one step's prior (or posterior) draw: (B, z_dim) for
+    svg_vec, (B, fh, fw, z_dim) for svg."""
+    if cfg.model == "svg_vec":
+        return (batch, cfg.z_dim)
+    return (batch, cfg.feat_height, cfg.feat_width, cfg.z_dim)
+
+
+def draws_dropout(cfg: Config) -> bool:
+    """Whether a train step drops the vector encoder's channels."""
+    return cfg.dropout is not None and cfg.model in ("svg_vec", "det_vec")
+
+
 def draw_noise(cfg: Config, batch: int, steps: int, generator=None,
                device=None, sched_prob: float = 1.0) -> dict:
     """A window's random draws, made before it runs: per step the
     scheduled-sampling Bernoulli (ground truth with probability
-    `sched_prob`, one draw for the whole batch) and, for a stochastic
-    model, the prior's and the posterior's N(0, 1) draws, float32
-    (steps, B, fh, fw, z_dim); None for det, which draws nothing."""
+    `sched_prob`, one draw for the whole batch); for a stochastic model the
+    prior's and the posterior's N(0, 1) draws, float32 (steps,
+    `prior_shape`) (None for the deterministic families); and where
+    cfg.dropout is set for a vector model, "drop": for each of the
+    encoder's four stages the keep masks (steps, frames, B, C), bool, kept
+    with probability 1 - cfg.dropout (frames 2 for svg_vec, whose
+    posterior encodes the next frame with its own masks; 1 for det_vec)."""
     use_truth = torch.rand(steps, generator=generator, device=device) < sched_prob
-    if not is_stochastic(cfg):
-        return {"use_truth": use_truth, "eps_prior": None, "eps_post": None}
-    shape = (steps, batch, cfg.feat_height, cfg.feat_width, cfg.z_dim)
-    eps = torch.randn((2,) + shape, generator=generator, device=device)
-    return {"use_truth": use_truth, "eps_prior": eps[0], "eps_post": eps[1]}
+    out = {"use_truth": use_truth, "eps_prior": None, "eps_post": None}
+    if is_stochastic(cfg):
+        shape = (steps,) + prior_shape(cfg, batch)
+        eps = torch.randn((2,) + shape, generator=generator, device=device)
+        out["eps_prior"], out["eps_post"] = eps[0], eps[1]
+    if draws_dropout(cfg):
+        frames = 2 if cfg.model == "svg_vec" else 1
+        out["drop"] = [
+            torch.rand(steps, frames, batch, c, generator=generator,
+                       device=device) < 1.0 - cfg.dropout
+            for c in SKIP_CHANNELS]
+    return out
 
 
 def _step_noise(noise: dict, i: int):
@@ -169,6 +205,16 @@ def _step_noise(noise: dict, i: int):
     if noise["eps_prior"] is None:
         return None
     return noise["eps_prior"][i - 1], noise["eps_post"][i - 1]
+
+
+def _step_drop(noise: dict, i: int):
+    """Step i's dropout keep masks: (the current frame's four, the next
+    frame's four or None), or None."""
+    drop = noise.get("drop")
+    if drop is None:
+        return None
+    frames = [[m[i - 1, f] for m in drop] for f in range(drop[0].shape[1])]
+    return frames[0], frames[1] if len(frames) > 1 else None
 
 
 def _window_inputs(batch: dict, i: int, masks=None):
@@ -184,7 +230,8 @@ def _window_inputs(batch: dict, i: int, masks=None):
 
 
 def _predict(cfg, model, i, carry, skip, x_j, inp, noise, train,
-             force_use_prior=False, sample_mean=False):
+             force_use_prior=False, sample_mean=False, context_image=None,
+             drop=None):
     """The model step shared by train and eval: blackout, conditioning,
     the step, the composite with the un-blacked x_j, and the skip frozen
     after n_past. Returns (out, x_pred float32, new_carry, new_skip)."""
@@ -199,6 +246,7 @@ def _predict(cfg, model, i, carry, skip, x_j, inp, noise, train,
         sample_mean=sample_mean, skip=skip,
         use_curr_skip=(i <= 1) if not cfg.last_frame_skip else None,
         train=train, force_use_prior=force_use_prior, noise=noise,
+        context_image=context_image, drop=drop,
         **_next_conditioning(cfg, x_i_black, inp["m_i"], inp["r_i"],
                              inp["hm_i"]))
     x_pred = composite(cfg, out["x_pred"], x_j).float()
@@ -217,8 +265,8 @@ def _save_convolutions(ctx, op, *args, **kwargs):
 
 
 def make_train_step(cfg: Config, model):
-    """Builds the whole-window train step of `model` (a training svg or det
-    model: float32 parameters) and its optimizer.
+    """Builds the whole-window train step of `model` (a training model of
+    any family: float32 parameters) and its optimizer.
 
     train_step(batch, sched_prob, generator=None, noise=None) -> metrics,
     a dict of 0-d float32 tensors on the batch's device (not synced).
@@ -237,12 +285,14 @@ def make_train_step(cfg: Config, model):
     window = cfg.n_past + cfg.n_future
     stochastic = is_stochastic(cfg)
 
-    def step_fn(i, carry, skip, x_prev, inp, use_truth, eps, batch_weight):
+    def step_fn(i, carry, skip, x_prev, inp, use_truth, eps, drop, ctx,
+                batch_weight):
         x_j = inp["x_j"]
         if i > 1 and cfg.scheduled_sampling:  # else ground truth throughout
             x_j = torch.where(use_truth, x_j, x_prev)
         out, x_pred, carry, skip = _predict(cfg, model, i, carry, skip, x_j,
-                                            inp, eps, train=True)
+                                            inp, eps, train=True,
+                                            context_image=ctx, drop=drop)
         x_i, m_i = inp["x_i"], inp["m_i"]
         losses = {
             "recon_loss": _recon_loss(cfg, x_pred, x_i, m_i, batch_weight),
@@ -280,6 +330,7 @@ def make_train_step(cfg: Config, model):
             carry, skip, x_prev, losses, bn_stats = run(
                 i, carry, skip, x_prev, _window_inputs(batch, i),
                 noise["use_truth"][i - 1], _step_noise(noise, i),
+                _step_drop(noise, i), x[cfg.n_past - 1],
                 batch.get("batch_weight"))
             steps.append(losses)
             stats += bn_stats
@@ -328,7 +379,7 @@ def make_eval_step(cfg: Config, model, autoregressive: bool = True):
             out, x_pred, carry, skip = _predict(
                 cfg, model, i, carry, skip, x_j, inp, _step_noise(noise, i),
                 train=False, force_use_prior=True,
-                sample_mean=cfg.sample_mean)
+                sample_mean=cfg.sample_mean, context_image=x[cfg.n_past - 1])
             metrics = _eval_metrics(cfg, x_pred, inp["x_i"], true_masks[i])
             if stochastic:
                 metrics["kld"] = L.kl_criterion(out["mu"], out["logvar"],

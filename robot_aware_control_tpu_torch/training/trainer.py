@@ -5,7 +5,8 @@ src/prediction/trainer.py:53-1471).
     python -m robot_aware_control_tpu_torch.training.trainer \\
         --experiment synthetic --device cuda [--flags of config.py]
 
-The loop of the JAX trainer, for svg and det:
+The loop of the JAX trainer, for every model family (svg, det,
+svg_vec, det_vec, cdna_det, cdna_robonet):
   * the experiment's loaders (trainer.py:178-238): `synthetic`, the
     RoboNet, sawyer and locobot view-directory experiments, and any other
     name over every HDF5 under --data_root (data/loader.py), with the
@@ -45,8 +46,8 @@ The loop of the JAX trainer, for svg and det:
     train, test and transfer epochs instead of training, with a rollout
     gif of each split (trainer.py:569-598).
 
-Not ported yet, and raising where they are read: the models other than
-svg, det and copy, sharded checkpoints, public-RoboNet raw files. The
+Not ported yet, and raising where they are read: sharded checkpoints,
+public-RoboNet raw files. The
 synthetic data carries no heatmaps, so heatmap-conditioned models raise on
 it, as the JAX trainer fails. Not ported: mesh sharding, wandb.
 """
@@ -94,7 +95,7 @@ _WINDOW_KEYS = ("images", "masks", "states", "qpos", "heatmaps")
 
 class PredictionTrainer:
     def __init__(self, cfg: Config, device="cuda"):
-        family = get_model(cfg)  # raises for a model the port does not have
+        family = get_model(cfg)
         if cfg.sharded_checkpoint:
             raise NotImplementedError(
                 "sharded_checkpoint: orbax checkpoints are not ported yet")

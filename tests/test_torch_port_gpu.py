@@ -42,6 +42,14 @@ from torch_data_cases import (
     prefetch_check,
     write_record_split,
 )
+from torch_family_cases import (
+    FAMILIES,
+    family_fields,
+    inverse_learns,
+    inverse_step_parity,
+)
+from torch_family_cases import small_plan_parity as family_plan_parity
+from torch_family_cases import train_step_parity as family_train_parity
 from torch_mask_cases import MASK_CASES, mask_case
 from torch_serve_cases import (
     cell_invariance,
@@ -686,3 +694,69 @@ def test_gpu_finetune_trainer_takes_the_kernels(cuda, tmp_path):
     tr.logger.close()
     assert dict(kernels.launches) == finetune_launches(cfg, 1, 2)
     recorded_kernel_vs_plain(rendered)
+
+
+# ------------------------------------------------------- model families
+@pytest.mark.parametrize("name", FAMILIES)
+def test_gpu_family_plan_matches_cpu(cuda, monkeypatch, name):
+    """A small float32 plan of each family equals the CPU's to 1e-4 and
+    launches its cells (CDNA's 2 a model step through the float32 kernel;
+    none in the vector models) and masks (torch_family_cases)."""
+    _tf32_off(monkeypatch)
+    family_plan_parity(name, cuda)
+
+
+@pytest.mark.parametrize("name", ["cdna_det", "cdna_robonet"])
+def test_gpu_cdna_plan_cells_take_sm90(cuda, name):
+    """A canonical bf16 CDNA plan (g_dim 256, N 100, horizon 5, opt_iter
+    10): 80 cell launches (40 k = 5, 40 k = 3), every one through the
+    wgmma/TMA kernel, and 10 mask launches; the plan finite and clamped."""
+    cfg = Config(**dict(CANONICAL, **family_fields(name, small=False)))
+    policy = CEMPolicy(cfg, get_model(cfg).init(cfg, 0, cuda))
+    start, goal = start_goal(np.random.RandomState(0))
+    before = dict(kernels.launches)
+    plan = policy.get_action(start, goal)
+    got = {k: kernels.launches[k] - before[k] for k in before}
+    assert got == plan_launches(cfg)
+    assert got["conv_lstm_cell_sm90"] == 80
+    assert plan.shape == (4, 2) and np.all(np.isfinite(plan))
+    assert np.abs(plan).max() <= 0.05
+
+
+@pytest.mark.parametrize("name", ["cdna_det", "svg_vec"])
+def test_gpu_family_batched_plans_equal_single(cuda, name):
+    """At the canonical config (bf16, the JAX defaults' fc-LSTM stacks):
+    batched plans of 2 and 4 requests equal their single plans bit for bit
+    (the vector models' Linears and CDNA's kernel einsum at R x 100 rows)."""
+    cfg = Config(**dict(CANONICAL, **family_fields(name, small=False)))
+    model = get_model(cfg).init(cfg, 0, cuda)
+    checks = plan_checks(CEMPolicy(cfg, model), repeats=2, batch_sizes=(2, 4))
+    assert set(checks["batched"].values()) == {0.0}
+
+
+def test_gpu_cdna_eval_step_kernel_matches_plain(cuda):
+    """The trainer's eval step of cdna_det at full width (g_dim 256, B =
+    16, bf16): with the cell kernel, 2 sm90 launches a model step, against
+    the same step with its plain version, to EVAL_TOL."""
+    result = eval_kernel_vs_plain(cuda, model="cdna_det")
+    assert max(r["preds"] for r in result.values()) <= EVAL_TOL
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_gpu_family_train_step_matches_cpu(cuda, monkeypatch, name):
+    """The small float32 train and eval step of each family (the vector
+    models with channel dropout, the same keep masks on both devices), GPU
+    against CPU, to the limits of torch_train_small.py."""
+    _tf32_off(monkeypatch)
+    errs, _ = family_train_parity(name, cuda)
+    assert errs["grads_norm"] <= GRAD_TOL_DEVICES
+
+
+@pytest.mark.parametrize("discretized", [False, True])
+def test_gpu_inverse_step_matches_cpu(cuda, monkeypatch, discretized):
+    """One Adam step of the inverse model, GPU against CPU; 20 steps at
+    batch 128 lower its loss."""
+    _tf32_off(monkeypatch)
+    inverse_step_parity(cuda, discretized=discretized)
+    if not discretized:
+        inverse_learns(cuda)

@@ -53,6 +53,7 @@ from robot_aware_control_tpu_torch.planning.cem import (
 from robot_aware_control_tpu_torch.planning.rollout import TrajectorySampler
 from robot_aware_control_tpu_torch.robot import locobot_kinematics as tlk
 from robot_aware_control_tpu_torch.robot.mask_renderer import CapsuleMaskRenderer
+from robot_aware_control_tpu_torch.training import plot
 from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
 # the small float32 config of tests/test_plan_server.py
@@ -130,7 +131,7 @@ def test_config_serving_fields_match_jax():
     assert not rest
     assert (cfg.env, cfg.demo_cost, cfg.plan_server_port,
             cfg.dynamics_model_ckpt) == ("LocobotPick", True, 7000, "c.npz")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         Config(plan_quantize="int8")
 
 
@@ -234,10 +235,11 @@ def test_variant_plans_match_jax(weights, rng, monkeypatch, variant):
             assert np.all(got[:, -1] <= 0) and np.all(got[:, -1] >= -0.01)
 
 
-def test_constructor_overrides_and_hooks(weights, rng):
+def test_constructor_overrides_and_hooks(weights, rng, monkeypatch, tmp_path):
     """horizon/opt_iter/action_candidates/topk/init_std override the config
-    as in the JAX constructor; mesh and debug_cem are not ported; a chain
-    robot's policy plans."""
+    as in the JAX constructor; mesh is not ported (the parallel layouts,
+    item 7); a debug_cem plan hands save_gif its rollout beside the goal; a
+    chain robot's policy plans."""
     cfg = Config(**SERVE_KW)
     model = _model(weights)
     p = CEMPolicy(cfg, model, device="cpu", horizon=4, opt_iter=1,
@@ -246,10 +248,19 @@ def test_constructor_overrides_and_hooks(weights, rng):
         4, 1, 5, 2, 0.01)
     start, goal = _start_goal(rng)
     assert p.get_action(start, goal).shape == (3, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         CEMPolicy(cfg, model, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="plot"):
-        CEMPolicy(cfg.replace(debug_cem=True), model, device="cpu")
+    saved = []
+    monkeypatch.setattr(plot, "save_gif",
+                        lambda path, frames, fps=2: saved.append((path, frames)))
+    debug = CEMPolicy(cfg.replace(debug_cem=True, log_dir=str(tmp_path)), model,
+                      device="cpu", horizon=4, opt_iter=1, action_candidates=5,
+                      topk=2)
+    assert debug.get_action(start, goal, ep_num=2, step=3).shape == (3, 2)
+    (path, frames), = saved
+    assert path == str(tmp_path / "debug_cem_ep2_step3.gif")
+    assert len(frames) == 3 and all(f.shape == (48, 128, 3) for f in frames)
+    assert all(np.isfinite(f).all() for f in frames)
     # control_franka plans through the franka's measured chain (7 joints)
     franka = CEMPolicy(cfg.replace(experiment="control_franka"), model,
                        device="cpu", horizon=3, opt_iter=1, action_candidates=4,

@@ -201,9 +201,7 @@ def test_argparser_takes_the_jax_flags():
         main(["--device", "cpu", "--no_such_flag", "1"])
 
 
-@pytest.mark.parametrize("kw", [dict(model="cdna_det"),
-                                dict(model="svg_vec"),
-                                dict(experiment="train_robonet"),
+@pytest.mark.parametrize("kw", [dict(experiment="train_robonet"),
                                 dict(sharded_checkpoint=True)])
 def test_unported_options_raise(tmp_path, kw):
     """Options the port does not have yet raise when the trainer is built;

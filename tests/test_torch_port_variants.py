@@ -49,6 +49,7 @@ from robot_aware_control_tpu_torch.training.trainer import PredictionTrainer
 from torch_train_cases import one_torch_thread  # noqa: F401 (autouse)
 from torch_train_cases import (
     STEP_KW,
+    random_tree as _random_tree,
     STEP_TOL,
     fake_jax_normal,
     flat,
@@ -105,26 +106,6 @@ def jax_group_norm_steps():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jlstm, "conv_lstm", _jax_conv_lstm)
         yield
-
-
-def _random_tree(shapes, r, he=True):
-    """Float32 numpy leaves of a JAX model's tree of shapes: weights "w"
-    N(0, 2 / fan_in) (He-scaled: the reference's N(0, 0.02), used with
-    he=False, shrinks activations layer by layer until the prediction
-    hardly depends on the input), biases "b" U(-0.1, 0.1), norm scales
-    U(0.5, 1.5) and biases U(-0.3, 0.3): every GroupNorm and BatchNorm
-    parameter away from 1 and 0, so that a swapped or misplaced one changes
-    the output."""
-    def leaf(path, s):
-        name = path[-1].key
-        if name == "w":
-            std = np.sqrt(2.0 / np.prod(s.shape[:-1])) if he else 0.02
-            return r.randn(*s.shape) * std
-        lo, hi = {"b": (-0.1, 0.1), "scale": (0.5, 1.5), "bias": (-0.3, 0.3),
-                  "mean": (-0.2, 0.2), "var": (0.5, 1.5)}[name]
-        return r.uniform(lo, hi, s.shape)
-    return jax.tree_util.tree_map_with_path(
-        lambda p, s: np.asarray(leaf(p, s), np.float32), shapes)
 
 
 def _jax_trees(jcfg, seed=0, he=True):

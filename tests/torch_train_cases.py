@@ -96,3 +96,23 @@ def port_model(params, bn, cfg):
     model = tsvg.SVG(cfg, "cpu", param_dtype=torch.float32)
     model.load_state_dict(convert.svg_state_dict(np_tree(params), np_tree(bn)))
     return model
+
+
+def random_tree(shapes, r, he=True):
+    """Float32 numpy leaves of a JAX model's tree of shapes: weights "w"
+    N(0, 2 / fan_in) (He-scaled: the reference's N(0, 0.02), used with
+    he=False, shrinks activations layer by layer until the prediction
+    hardly depends on the input), biases "b" U(-0.1, 0.1), norm scales
+    U(0.5, 1.5) and biases U(-0.3, 0.3): every GroupNorm and BatchNorm
+    parameter away from 1 and 0, so that a swapped or misplaced one changes
+    the output."""
+    def leaf(path, s):
+        name = path[-1].key
+        if name == "w":
+            std = np.sqrt(2.0 / np.prod(s.shape[:-1])) if he else 0.02
+            return r.randn(*s.shape) * std
+        lo, hi = {"b": (-0.1, 0.1), "scale": (0.5, 1.5), "bias": (-0.3, 0.3),
+                  "mean": (-0.2, 0.2), "var": (0.5, 1.5)}[name]
+        return r.uniform(lo, hi, s.shape)
+    return jax.tree_util.tree_map_with_path(
+        lambda p, s: np.asarray(leaf(p, s), np.float32), shapes)

@@ -21,7 +21,6 @@ import torch
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.data.heatmaps import create_heatmaps
 from robot_aware_control_tpu_torch.data.norm import LOCOBOT_HIGH, LOCOBOT_LOW
-from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.ops.lstm import GN_EPS, GROUPS, GroupNorm
@@ -49,6 +48,12 @@ TRAIN_SMALL = dict(TRAIN, g_dim=16, z_dim=4, batch_size=2, n_future=3,
 # (a few 1e-5) and its gradient are float32 cancellations that differ
 # between any two implementations by a percent
 PRIOR_MU_BIAS, PRIOR_LOGVAR_BIAS = 0.3, -0.5
+# CDNA's kernel MLP is offset so that its outputs sit away from the kink of
+# relu(x - 1e-12) + 1e-12: at the reference's init they straddle it, and
+# where float32 rounding puts a tap on one side or the other the per-flow
+# normalisation gives another kernel (cdna_det's eval predictions on an
+# H100 80GB HBM3 lay 3.6e-4 from the CPU's, relative)
+KERNEL_MLP_BIAS = 0.05
 
 # Loss, metrics, BatchNorm statistics and eval outputs of the small float32
 # step hold to 1e-4 relative (to each leaf's max for tensors). Its
@@ -105,18 +110,22 @@ def bench_batch(cfg, B, seed, dev):
 def cells_per_step(cfg) -> int:
     """Cell kernel launches of one inference model step with the
     posterior (an eval step): svg 6 (prior, posterior and frame stacks of
-    2), det 2, none with GroupNorm cells."""
+    2), det and CDNA 2, none with GroupNorm cells or in the vector models
+    (fc-LSTMs)."""
     if cfg.lstm_group_norm:
         return 0
-    return 2 if cfg.model == "det" else 6
+    return {"svg": 6, "svg_vec": 0, "det_vec": 0}.get(cfg.model, 2)
 
 
 @torch.no_grad()
 def distinct_prior(model):
-    """Offsets the prior's heads (see PRIOR_MU_BIAS); det has none."""
+    """Offsets the prior's heads (see PRIOR_MU_BIAS); det has none. Offsets
+    CDNA's kernel MLP (see KERNEL_MLP_BIAS)."""
     if hasattr(model, "prior"):
         model.prior.mu.bias.fill_(PRIOR_MU_BIAS)
         model.prior.logvar.bias.fill_(PRIOR_LOGVAR_BIAS)
+    if hasattr(model, "kernel_mlp"):
+        model.kernel_mlp.bias.fill_(KERNEL_MLP_BIAS)
 
 
 def max_rel(got, want):
@@ -126,7 +135,11 @@ def max_rel(got, want):
 
 
 def _to(tensors, dev):
-    return {k: None if v is None else v.to(dev) for k, v in tensors.items()}
+    """A dict of tensors, lists of tensors (the dropout masks) or None on
+    `dev`."""
+    move = lambda v: (None if v is None else [t.to(dev) for t in v]
+                      if isinstance(v, list) else v.to(dev))
+    return {k: move(v) for k, v in tensors.items()}
 
 
 def small_steps(dev, seed=0, **variant):
@@ -237,21 +250,22 @@ def plain_cells():
         kernels.conv_lstm_cell = kernel
 
 
-def eval_kernel_vs_plain(dev="cuda"):
+def eval_kernel_vs_plain(dev="cuda", **variant):
     """The trainer's eval step at full width (TRAIN with n_eval 10, batch
-    test_batch_size = 16, bf16, weights from a seed, injected noise), each
-    mode (autoregressive and one-step) once with the cell kernel and once
-    with its plain version in its place. Returns, by mode, the kernel
+    test_batch_size = 16, bf16, weights from a seed, injected noise; svg
+    unless the `variant`'s fields say otherwise, e.g. model="cdna_det"),
+    each mode (autoregressive and one-step) once with the cell kernel and
+    once with its plain version in its place. Returns, by mode, the kernel
     launches of the kernel run and the errors of predictions and metrics;
     raises AssertionError past EVAL_TOL or if a launch missed sm90."""
-    cfg = Config(**dict(TRAIN, n_eval=10))
+    cfg = Config(**dict(TRAIN, n_eval=10, **variant))
     B = cfg.test_batch_size
-    model = svg.init(cfg, seed=4, device=dev, train=True)
+    model = get_model(cfg).init(cfg, seed=4, device=dev, train=True)
     batch = bench_batch(cfg.replace(n_future=cfg.n_eval - 1), B, 8, dev)
     noise = draw_noise(cfg, B, cfg.n_eval - 1,
                        torch.Generator().manual_seed(9), "cpu")
     noise = _to(noise, dev)
-    cells = 6 * (cfg.n_eval - 1)
+    cells = cells_per_step(cfg) * (cfg.n_eval - 1)
     result = {}
     for mode in ("autoreg", "one_step"):
         step = make_eval_step(cfg, model, autoregressive=mode == "autoreg")

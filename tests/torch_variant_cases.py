@@ -77,17 +77,19 @@ FLIP_STEP = 2 / 255 + 1 / 255 ** 2
 
 def plan_launches(cfg: Config) -> dict:
     """Kernel launches of one plan: per model step 2 cells in each of the
-    prior and frame stacks (svg) or in the frame stack (det), none with
-    GroupNorm cells; bf16 cells through the wgmma/TMA kernel: svg's of
-    g_dim channels where that is a multiple of 8, det's of any even count
-    (g_dim + 2 + 2 = 260 at the canonical config) in views of padded
-    buffers; float32 cells all through the float32 kernel; one mask render
-    an iteration."""
+    prior and frame stacks (svg) or in the frame stack (det, cdna_det,
+    cdna_robonet), none with GroupNorm cells and none in the vector models
+    (svg_vec, det_vec: fc-LSTMs); bf16 cells through the wgmma/TMA kernel:
+    svg's and CDNA's of g_dim channels where that is a multiple of 8,
+    det's of any even count (g_dim + 2 + 2 = 260 at the canonical config)
+    in views of padded buffers; float32 cells all through the float32
+    kernel; one mask render an iteration."""
     steps = (cfg.horizon - 1) * cfg.opt_iter
-    cells = 0 if cfg.lstm_group_norm else (2 if cfg.model == "det" else 4) * steps
+    per_step = {"svg": 4, "svg_vec": 0, "det_vec": 0}.get(cfg.model, 2)
+    cells = 0 if cfg.lstm_group_norm else per_step * steps
     det_channels = cfg.g_dim + 2 + (2 if cfg.model_use_robot_state else 0)
     sm90 = cells if cfg.compute_dtype == "bfloat16" and (
-        cfg.g_dim % 8 == 0 if cfg.model == "svg" else det_channels % 2 == 0
+        det_channels % 2 == 0 if cfg.model == "det" else cfg.g_dim % 8 == 0
     ) else 0
     f32 = cells if cfg.compute_dtype == "float32" else 0
     return {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": sm90,
@@ -104,14 +106,15 @@ def start_goal(rng, h=48, w=64):
     return start, goal
 
 
-def small_plan_parity(name: str, dev="cuda"):
+def small_plan_parity(name: str, dev="cuda", fields=None):
     """The variant's small float32 plan on `dev` against the CPU's, same
     weights (seed 3) and injected action noise; not for the blur variant
-    (module docstring). Call with TF32 off.
+    (module docstring). `fields` replaces VARIANTS[name] (the model
+    families: tests/torch_family_cases.py). Call with TF32 off.
     Returns (max |difference|, the kernel launches of the `dev` plan);
     raises AssertionError past PLAN_TOL or where the launches are not
     `plan_launches`'."""
-    cfg = Config(**dict(SMALL, **VARIANTS[name]))
+    cfg = Config(**dict(SMALL, **(VARIANTS[name] if fields is None else fields)))
     start, goal = start_goal(np.random.RandomState(1))
     noise = np.random.RandomState(2).randn(
         cfg.opt_iter, cfg.action_candidates, cfg.horizon - 1, 2)
