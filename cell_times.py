@@ -4,7 +4,7 @@ or with --f32 its float32 cell kernel, on one NVIDIA GPU, at the shapes of
 the trainer's eval epoch, the planner and the plan server: B = 16, 100,
 200 and 400 (6x8 maps, Cx = C = 256), k = 5 and 3.
 
-    python3 cell_times.py [--f32 [--plan]] [--save FILE] [--bits FILE]
+    python3 cell_times.py [--f32] [--plan] [--save FILE] [--bits FILE]
 
 The inputs (seed 7) and the CUDA-event timing are chip_smoke.py's, imported
 from the same checkout. A copy of this script run from the root of another
@@ -14,10 +14,11 @@ compared in one call in turns: parent, change, change, parent. Each launch
 is first held to the plain version (bf16: 1e-2 absolute and relative, and
 it must take the wgmma/TMA kernel; float32: 1e-4 with TF32 off, one cell
 launch counted in launches["conv_lstm_cell"], which every checkout has).
-`--plan` (with --f32) also runs the canonical planner with compute_dtype
-float32 (seed-0 weights): one warm-up and three timed plans of 160 cells
-and 10 masks each, then one plan under torch.profiler (device busy time,
-kernel time summed over streams, the cell kernel's share of that sum). `--save FILE` writes each shape's h' and c' to FILE
+`--plan` also runs the canonical planner in the kernel's type (bf16, or
+float32 with --f32; seed-0 weights): one warm-up and three timed plans of
+160 cells and 10 masks each, one plan's host syncs, then one plan under
+torch.profiler (device busy time, kernel time summed over streams, the
+cell kernel's share of that sum). `--save FILE` writes each shape's h' and c' to FILE
 (torch.save); `--bits FILE` fails unless they equal those in FILE bit for
 bit. Prints the card's name and power limit, then one JSON line
 {"card": ..., "dtype": ..., "cell_ms": {"B=16 k=5": [ms, ms, ms], ...},
@@ -46,15 +47,15 @@ from torch_variant_cases import CANONICAL, start_goal  # tests/, on chip_smoke's
 SHAPES = [(B, 6, 8, 256, 256, k) for B in (16, 100, 200, 400) for k in (5, 3)]
 
 
-def f32_plan(n_timed: int = 3) -> dict:
-    """The canonical planner in float32: latency of n_timed plans after a
-    warm-up (host clock, each ending in a sync), each launching 160 cells
-    and 10 masks, then one plan under torch.profiler: device busy time,
-    kernel time summed over streams, and the cell kernel's part of that sum
-    (kernels named cell_kernel)."""
+def canonical_plan(compute_dtype: str, n_timed: int = 3) -> dict:
+    """The canonical planner in `compute_dtype`: latency of n_timed plans
+    after a warm-up (host clock, each ending in a sync), each launching 160
+    cells and 10 masks, the host syncs of one plan, then one plan under
+    torch.profiler: device busy time, kernel time summed over streams, and
+    the cell kernel's part of that sum (kernels named cell_kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = Config(**dict(CANONICAL, compute_dtype="float32"))
+    cfg = Config(**dict(CANONICAL, compute_dtype=compute_dtype))
     policy = CEMPolicy(cfg, svg.init(cfg, seed=0, device="cuda"))
     start, goal = start_goal(np.random.RandomState(0))
     want = {"conv_lstm_cell": 4 * (cfg.horizon - 1) * cfg.opt_iter,
@@ -70,7 +71,9 @@ def f32_plan(n_timed: int = 3) -> dict:
             seconds.append(time.perf_counter() - t0)
         got = {n: kernels.launches[n] - before[n] for n in want}
         if got != want or plan.shape != (4, 2) or not np.all(np.isfinite(plan)):
-            raise AssertionError(f"float32 plan {i}: launches {got}, plan {plan}")
+            raise AssertionError(f"{compute_dtype} plan {i}: launches {got}, "
+                                 f"plan {plan}")
+    syncs = smoke.count_syncs(lambda: policy.get_action(start, goal, ep_num=3))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         policy.get_action(start, goal, ep_num=2, step=0)
@@ -93,7 +96,8 @@ def f32_plan(n_timed: int = 3) -> dict:
     cell = sum(ms for key, ms, _ in rows if "cell_kernel" in key)
     cell_n = sum(n for key, _, n in rows if "cell_kernel" in key)
     return dict(latency_s=statistics.median(seconds), latency_runs=seconds,
-                launches_per_plan=want, profiled_wall_ms=wall, busy_ms=busy,
+                launches_per_plan=want, syncs=syncs, profiled_wall_ms=wall,
+                busy_ms=busy,
                 busy_share=busy / wall if busy else None, kernel_ms=summed,
                 cell_ms=cell, cell_launches=cell_n,
                 cell_share=cell / summed if summed else None)
@@ -106,7 +110,7 @@ def main() -> int:
     ap.add_argument("--f32", action="store_true",
                     help="the float32 cell kernel in place of the bf16 one")
     ap.add_argument("--plan", action="store_true",
-                    help="with --f32: the canonical planner in float32 too")
+                    help="the canonical planner in the kernel's type too")
     args_ = ap.parse_args()
     if not torch.cuda.is_available():
         print("cell_times: no CUDA device is available", file=sys.stderr)
@@ -139,7 +143,8 @@ def main() -> int:
         times[key] = [smoke.cuda_ms(run, n=5 if args_.f32 else 20)
                       for _ in range(3)]
     result = {"card": card, "dtype": str(dtype), "cell_ms": times, "bits": None,
-              "plan": f32_plan() if args_.f32 and args_.plan else None}
+              "plan": (canonical_plan("float32" if args_.f32 else "bfloat16")
+                       if args_.plan else None)}
     if args_.bits:
         want = torch.load(args_.bits)
         differ = {key: [int((a.view(bits_as) != b.view(bits_as)).sum())

@@ -216,9 +216,35 @@ Phases, each of which raises on failure:
                 Adam step on the card against the CPU (continuous and
                 discretized heads) and 20 steps at batch 128 whose loss
                 falls.
+ 15. sim        the simulated envs, ground-truth CEM, the episode runner
+                and the bridge to the reference's checkpoints (envs/,
+                planning/gt_rollout.py, control/episode_runner.py,
+                models/torch_import.py, torch_export.py; cases in
+                tests/torch_sim_cases.py): (a) LocobotPush (contact),
+                LocobotPick (grab, carry, release, drop) and ClutterPush (a
+                chain of three blocks), 20 scripted steps each on the card
+                against the CPU: positions and joints within 1e-5, images
+                within 1e-5, masks bit-equal; (b) the mask kernel at one GT
+                iteration's launch (M = 100 x 4 thin capsules) and at one
+                observation's (M = 1) equal to its plain version bit for
+                bit, timed by CUDA events beside its plain version and its
+                bound; (c) GT CEM plans in LocobotPush at N = 100, horizon
+                5, opt_iter 10, topk 5: a warm-up and three timed plans
+                (median), each launching the mask kernel 10 times and the
+                cell never, a profiled plan's device time and busy share,
+                its host syncs; a small GT plan on the card equal to the
+                CPU's within 1e-5 with injected noise; one env step's host
+                syncs and mask launches; (d) one 4-step PushEpisodeRunner
+                episode with GT dynamics and one with the canonical svg
+                (bf16, seed-0 weights), each following a demo made in
+                memory by demo_from_history: plan latency a step, env step
+                time, the sm90 cell's and the mask kernel's launches, a
+                finite summary; (e) a reference-layout state dict built on
+                the host, loaded on the card through torch_import, plans bit
+                for bit as the same weights loaded through convert.py.
 
 Prints the card line, one JSON line each of the train, serve, variants,
-data, robots and families phases and one of kernels (the mask kernel, the sm90 cell at the planner's
+data, robots, families and sim phases and one of kernels (the mask kernel, the sm90 cell at the planner's
 shapes and at det's, the WMMA kernel and the float32 kernel, each with its
 launches on its own path), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -247,6 +273,7 @@ from robot_aware_control_tpu_torch.control.plan_server import PlanServer
 from robot_aware_control_tpu_torch.data import native, robonet_hdf5
 from robot_aware_control_tpu_torch.data.loader import DataLoader
 from robot_aware_control_tpu_torch.data.records import RecordDataset
+from robot_aware_control_tpu_torch.envs.variants import make
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.planning.cost import InpaintBlurCost, gaussian_blur
 from robot_aware_control_tpu_torch.training import checkpoint as ckpt
@@ -310,6 +337,22 @@ from torch_robot_cases import (  # noqa: E402
     record_renders,
     recorded_kernel_vs_plain,
     robot_step_parity,
+)
+from torch_sim_cases import (  # noqa: E402
+    GT_EPISODE,
+    GT_PLAN_TOL,
+    IMG_TOL,
+    LEARNED_EPISODE,
+    POS_TOL,
+    SIM_ENVS,
+    STEPS,
+    bridge_plan_check,
+    gt_mask_kernel_vs_plain,
+    gt_plans,
+    gt_scenes,
+    physics_card_vs_cpu,
+    run_push_episode,
+    small_gt_plan_parity,
 )
 from torch_variant_cases import (  # noqa: E402
     CANONICAL,
@@ -698,6 +741,32 @@ def valid_taps(H, W, k):
     return rows * cols
 
 
+def mask_bound(segs, h, w):
+    """The mask kernel's least time on `segs` (M, S, 6): 24 float32
+    operations per pixel and capsule (one of them a division) plus 5 per
+    capsule, counting the tests of the pixel centres inside a capsule's box
+    grown by its larger radius (no margin, no tiles; outside it every test
+    misses), against the segments read once and the masks written once.
+    Returns (tests needed, operations, operations dense, bound ms, bound
+    by)."""
+    M, S = segs.shape[:2]
+    au, av, bu, bv, ra, rb = segs.unbind(-1)
+    grow = torch.maximum(ra.abs(), rb.abs())
+    px = torch.arange(w, device=segs.device) + 0.5
+    py = torch.arange(h, device=segs.device) + 0.5
+
+    def inside(p, a, b):
+        lo = (torch.minimum(a, b) - grow)[..., None]
+        hi = (torch.maximum(a, b) + grow)[..., None]
+        return ((p >= lo) & (p <= hi)).sum(-1)
+
+    needed = int((inside(px, au, bu) * inside(py, av, bv)).sum())
+    ops = 24 * needed + 5 * M * S
+    dense = 24 * M * S * h * w + 5 * M * S
+    bound, by = bound_ms(ops, PEAK_F32, segs.numel() * 4 + M * h * w * 4)
+    return needed, ops, dense, bound, by
+
+
 def time_mask(dev, launches, err):
     segs, h, w = mask_case("planner_500", dev)
     M, S = segs.shape[:2]
@@ -723,24 +792,7 @@ def time_mask(dev, launches, err):
     # a yardstick for the write alone: PyTorch filling an output of this size
     out = torch.empty(M, h, w, device=dev)
     fill = cuda_ms(lambda: out.fill_(0.0), n=200)
-    # 24 float32 operations per pixel and capsule (one of them a division)
-    # plus 5 per capsule. The work these inputs need: the tests of the pixel
-    # centres inside a capsule's box grown by its larger radius (no margin,
-    # no tiles); outside it every test misses. Dense: every test.
-    au, av, bu, bv, ra, rb = segs.unbind(-1)
-    grow = torch.maximum(ra.abs(), rb.abs())
-    px = torch.arange(w, device=dev) + 0.5
-    py = torch.arange(h, device=dev) + 0.5
-
-    def inside(p, a, b):
-        lo = (torch.minimum(a, b) - grow)[..., None]
-        hi = (torch.maximum(a, b) + grow)[..., None]
-        return ((p >= lo) & (p <= hi)).sum(-1)
-
-    needed = int((inside(px, au, bu) * inside(py, av, bv)).sum())
-    ops = 24 * needed + 5 * M * S
-    dense = 24 * M * S * h * w + 5 * M * S
-    bound, by = bound_ms(ops, PEAK_F32, segs.numel() * 4 + M * h * w * 4)
+    needed, ops, dense, bound, by = mask_bound(segs, h, w)
     rows, cols = kernels.MASK_TILE
     # the kernel's skip rule replayed in PyTorch, not counted on the card
     kept = kernels.capsule_mask_tests_kept(segs, h, w).float().mean().item()
@@ -1967,12 +2019,144 @@ def check_families(dev):
     return out
 
 
+# ------------------------------------------------------------------- sim
+def time_sim_mask(dev):
+    """The mask kernel at the sim path's launches: one GT CEM iteration's
+    (M = N x (horizon - 1) thin capsules of LocobotPush scenes) and one
+    observation's (M = 1), by CUDA events behind a sleeping kernel, beside
+    its plain version and its bound."""
+    renderer, qpos = gt_scenes(dev)
+    h, w = renderer.h, renderer.w
+    out = {}
+    for name, q in (("gt", qpos), ("observation", qpos[:1])):
+        segs = renderer.segment_params(q).float().contiguous()
+        M, S = segs.shape[:2]
+        ms = cuda_ms(lambda: kernels.capsule_mask_render(segs, h, w), n=200)
+        plain = cuda_ms(lambda: kernels.capsule_mask_render_plain(segs, h, w))
+        needed, ops, _, bound, by = mask_bound(segs, h, w)
+        kept = kernels.capsule_mask_tests_kept(segs, h, w).float().mean().item()
+        out[name] = dict(M=M, S=S, ms=ms, plain_ms=plain, bound_ms=bound,
+                         bound_by=by, gops=ops / 1e9, tests_kept=kept,
+                         inside_boxes=needed / (M * S * h * w))
+        print(f"mask kernel, sim {name} launch M={M} S={S} {h}x{w} thin: "
+              f"{ms:.5f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "
+              f"({by}, {ops / 1e9:.5f} G operations); share of the tests "
+              f"the skip rule keeps {kept:.4f}")
+    return out
+
+
+def sim_episode(fields, dev, log_dir, model=None):
+    """One 4-step PushEpisodeRunner episode (tests/torch_sim_cases.py):
+    plan latency a step, env step time, launches (expected: 1 mask launch
+    an observation, the reset's and the demo start's included, and the
+    plans' own), a finite summary."""
+    cfg = Config(**dict(fields, log_dir=log_dir))
+    r = run_push_episode(cfg, dev, model)
+    steps = cfg.max_episode_length - 1
+    plans = len(r["plan_s"])
+    want = {"capsule_mask_render": 2 + steps + plans * cfg.opt_iter,
+            "conv_lstm_cell_sm90": 0 if model is None
+            else plans * plan_launches(cfg)["conv_lstm_cell_sm90"]}
+    got = {k: r["launches"][k] for k in want}
+    if len(r["actions"]) != steps or got != want:
+        raise AssertionError(f"episode ran {len(r['actions'])} steps with "
+                             f"launches {got}, expected {steps} and {want}")
+    if not all(np.isfinite(v) for v in r["stats"].values()):
+        raise AssertionError(f"episode stats not finite: {r['stats']}")
+    out = dict(stats=r["stats"], launches=got, plan_s=r["plan_s"],
+               step_s=r["step_s"], plan_s_median=float(np.median(r["plan_s"])),
+               step_s_median=float(np.median(r["step_s"])))
+    print(f"{'GT' if model is None else 'learned'} episode: {steps} steps, "
+          f"plan {out['plan_s_median']:.4f} s a step (median; "
+          + ", ".join(f"{v:.4f}" for v in r["plan_s"])
+          + f"), env step {out['step_s_median'] * 1e3:.2f} ms, launches "
+          f"{got}; stats {r['stats']}")
+    return out
+
+
+def check_sim(dev):
+    """Phase 15 (see the module docstring). Returns its JSON line's dict."""
+    out = {"physics": {}}
+    for name in SIM_ENVS:
+        r = physics_card_vs_cpu(name, dev)
+        out["physics"][name] = r
+        print(f"{name}, {STEPS} steps card vs CPU: positions and joints "
+              f"{r['pos_err']:.3g} (tolerance {POS_TOL}), images "
+              f"{r['img_err']:.3g}, {r['mask_differ']} mask pixels differ; "
+              f"{r['coverage']}")
+        cov = r["coverage"]
+        covered = ((cov["grabs"] and cov["drops"]) if name == "LocobotPick"
+                   else cov["moved"] == (3 if name == "ClutterPush" else 1))
+        if not (r["pos_err"] <= POS_TOL and r["img_err"] <= IMG_TOL
+                and r["mask_differ"] == 0 and covered):
+            raise AssertionError(f"{name}: the card's physics or render "
+                                 "differs from the CPU's")
+    out["mask_kernel_vs_plain"] = gt_mask_kernel_vs_plain(dev)
+    print(f"mask kernel vs plain at the sim launches: "
+          f"{out['mask_kernel_vs_plain']}")
+    if any(r["differ"] for r in out["mask_kernel_vs_plain"].values()):
+        raise AssertionError("mask kernel differs from plain on sim scenes")
+    out["mask_times"] = time_sim_mask(dev)
+    gt = gt_plans(dev)
+    policy, goal = gt.pop("policy"), gt.pop("goal")
+    plan = lambda: policy.get_action(None, goal, ep_num=2)
+    prof = profile_plan(plan, "GT plan")
+    if prof:
+        busy, wall, rows = prof
+        gt.update(busy_ms=busy, profiled_wall_ms=wall, busy_share=busy / wall,
+                  device_kernels=sum(n for _, n, _ in rows),
+                  top_kernels=[(ms, n, key[:80]) for ms, n, key in rows[:8]])
+    gt["device_ms"] = device_ms(plan)
+    gt["syncs"] = count_syncs(plan)
+    print(f"GT plan (LocobotPush, N=100, horizon 5, opt_iter 10, topk 5): "
+          f"{gt['latency']:.4f} s (median of 3: "
+          + ", ".join(f"{v:.4f}" for v in gt["seconds"])
+          + f"), device {gt['device_ms']:.2f} ms, launches {gt['launches']}, "
+          f"{sum(gt['syncs'].values())} host syncs {gt['syncs']}")
+    out["gt_plan"] = gt
+    err = small_gt_plan_parity(dev)
+    out["small_gt_plan_parity"] = err
+    print(f"small GT plan, card vs CPU with injected noise: {err:.3g} "
+          f"(tolerance {GT_PLAN_TOL})")
+    if not err <= GT_PLAN_TOL:
+        raise AssertionError("GT plan on the card differs from the CPU's")
+    env = make("LocobotPush", Config(), seed=0, device=dev)
+    env.reset()
+    env.step(np.array([0.9, 0.1], np.float32))
+    before = kernels.launches["capsule_mask_render"]
+    out["env_step"] = dict(
+        syncs=count_syncs(lambda: env.step(np.array([0.9, 0.1], np.float32))),
+        mask_launches=kernels.launches["capsule_mask_render"] - before)
+    print(f"one LocobotPush env step on the card: {out['env_step']}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        out["gt_episode"] = sim_episode(GT_EPISODE, dev, d)
+        model = svg.init(Config(**LEARNED_EPISODE), seed=0, device=dev)
+        out["learned_episode"] = sim_episode(LEARNED_EPISODE, dev, d, model)
+    # the canonical learned plan's host syncs (the IK's constants are made
+    # once a device, so none of them comes from its loop)
+    start, goal = start_goal(np.random.RandomState(0))
+    policy = CEMPolicy(Config(**LEARNED_EPISODE), model, device=dev)
+    policy.get_action(start, goal)
+    out["learned_plan_syncs"] = count_syncs(
+        lambda: policy.get_action(start, goal, step=1))
+    print(f"canonical learned plan: {sum(out['learned_plan_syncs'].values())}"
+          f" host syncs {out['learned_plan_syncs']}")
+    del model, policy
+    out["bridge"] = bridge_plan_check(dev)
+    print(f"bridge: a reference state dict of {out['bridge']['keys']} tensors "
+          f"through torch_import plans as convert.py's: {out['bridge']}")
+    if not out["bridge"]["equal"]:
+        raise AssertionError("the bridged model's plan differs")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    phase("card")
+    t_start = phase("card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60
@@ -2074,6 +2258,24 @@ def main() -> int:
         mask_entry[f"launches_{name}"] = r["launches"]["capsule_mask_render"]
     cell_entry["cdna_state"] = families["cdna_cells"]
     print(json.dumps({"families": dict(families, card=card)}))
+
+    # the simulated envs, ground-truth CEM, the episode runner, the bridge
+    t = phase("sim")
+    sim = check_sim(dev)
+    sim["seconds"] = time.perf_counter() - t
+    sim["script_seconds"] = time.perf_counter() - t_start
+    mask_entry["launches_sim_gt_plan"] = sim["gt_plan"]["launches"][
+        "capsule_mask_render"]
+    mask_entry["launches_sim_env_step"] = sim["env_step"]["mask_launches"]
+    for kind in ("gt_episode", "learned_episode"):
+        mask_entry[f"launches_sim_{kind}"] = sim[kind]["launches"][
+            "capsule_mask_render"]
+    mask_entry["sim_launches"] = sim["mask_times"]
+    cell_entry["launches_sim_learned_episode"] = sim["learned_episode"][
+        "launches"]["conv_lstm_cell_sm90"]
+    print(f"phase sim took {sim['seconds']:.1f} s; the script "
+          f"{sim['script_seconds']:.1f} s so far")
+    print(json.dumps({"sim": dict(sim, card=card)}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

@@ -2,7 +2,8 @@
 
 A copy of the fields of `robot_aware_control_tpu.config.Config` that the
 port reads (the CEM planner and its server, the controller, the train and
-eval steps, the data loaders and the trainer),
+eval steps, the data loaders and the trainer, the simulated envs, data
+collection and the episode runner),
 with the same names and defaults, so a config written for one package
 means the same thing in the other; and a copy of its argparse front end
 (`create_parser`, `argparser`), so the port's trainer takes the same
@@ -22,6 +23,14 @@ def str2bool(v) -> bool:
     if isinstance(v, bool):
         return v
     return str(v).lower() == "true"
+
+
+def str2intlist(value):
+    if not value:
+        return ()
+    if isinstance(value, (list, tuple)):
+        return tuple(int(v) for v in value)
+    return tuple(int(num) for num in value.split(","))
 
 
 @dataclass(frozen=True)
@@ -171,6 +180,53 @@ class Config:
     max_episode_length: int = 10
     # the env's render size; the inpaint-blur cost's blur window follows it
     img_dim: int = 128
+    # a measured camera of data/calibration.py (others: locobot_c0)
+    camera_name: str = "external_camera_0"
+    # extra views of the multiview envs (envs/variants.py)
+    camera_ids: Tuple[int, ...] = (0, 4)
+    multiview: bool = False
+    red_robot: bool = False
+    action_repeat: int = 1
+    action_noise: float = 0.0
+    pixels_ob: bool = True
+    norobot_pixels_ob: bool = False
+    most_recent_background: bool = False
+    robot_mask_with_obj: bool = False
+    inpaint_eef: bool = True
+    # depth maps: the analytic rasterizer has none (raises)
+    depth_ob: bool = False
+    large_block: bool = False
+    object_dist_threshold: float = 0.01
+    gripper_dist_threshold: float = 0.025
+    # scripted demos (envs/*.generate_demo) and data collection
+    temporal_beta: float = 1.0
+    demo_length: int = 12
+    push_dist: float = 0.2
+    robot_goal_distribution: str = "random"
+    invisible_demo: bool = False
+    num_episodes: int = 100
+    collect_target: str = "train"  # train|demos|both
+    # the episode runner (control/episode_runner.py)
+    mbrl_algo: str = "cem"
+    use_env_dynamics: bool = False
+    debug_trajectory_path: Optional[str] = None
+    object_demo_dir: Optional[str] = None
+    subgoal_start: int = 0
+    sequential_subgoal: bool = True
+    # advance a pending subgoal after this many executed steps (0: never)
+    subgoal_step_limit: int = 0
+    demo_timescale: int = 1
+    demo_type: str = "object_only_demo"
+    goal_image_type: str = "image"
+    world_cost_success: float = 4000.0
+    robot_cost_success: float = 0.01
+    subgoal_completion_bonus: float = 0.0
+    record_trajectory: bool = False
+    record_trajectory_interval: int = 5
+    record_video_interval: int = 1
+    # observation translation for transfer (not ported: raises)
+    cyclegan: bool = False
+    cyclegan_ckpt: Optional[str] = None
 
     # --- port of the JAX package's additions ---
     # activations and conv weights at use; BatchNorm, LSTM biases and a
@@ -236,6 +292,8 @@ def create_parser() -> argparse.ArgumentParser:
         name = f"--{f.name}"
         if f.name in _BOOL_FIELDS:
             parser.add_argument(name, type=str2bool, default=f.default)
+        elif f.name == "camera_ids":
+            parser.add_argument(name, type=str2intlist, default=f.default)
         elif f.type in ("int", int):
             parser.add_argument(name, type=int, default=f.default)
         elif f.type in ("float", float, "Optional[float]"):

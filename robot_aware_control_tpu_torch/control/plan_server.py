@@ -352,20 +352,11 @@ def build_server(cfg: Config, device="cuda") -> PlanServer:
     --dynamics_model_ckpt (a ckpt_<step>.npz of either package's trainer;
     random weights from cfg.seed without one), the policy class by --env,
     bound to --plan_server_host/--plan_server_port."""
-    from robot_aware_control_tpu_torch import convert
-    from robot_aware_control_tpu_torch.models.registry import get_model
+    from robot_aware_control_tpu_torch.models.registry import load_model
     from robot_aware_control_tpu_torch.planning.cem import (
         CEMPolicy, PickCEMPolicy, PushCEMPolicy)
-    from robot_aware_control_tpu_torch.training import checkpoint as ckpt
 
-    model = get_model(cfg).init(cfg, cfg.seed, device)
-    if cfg.dynamics_model_ckpt:
-        params, bn = convert.jax_flat_trees(model)
-        trees, _ = ckpt.load_checkpoint(cfg.dynamics_model_ckpt,
-                                        {"params": params, "bn": bn})
-        model.load_state_dict(
-            convert.state_dict_from_flat(trees["params"], trees["bn"]),
-            strict=True)
+    model = load_model(cfg, cfg.dynamics_model_ckpt, device)
     policy_cls = {"LocobotPick": PickCEMPolicy,
                   "LocobotPush": PushCEMPolicy,
                   "LocobotTable": PushCEMPolicy}.get(cfg.env, CEMPolicy)

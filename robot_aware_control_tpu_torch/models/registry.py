@@ -23,3 +23,21 @@ def get_model(cfg: Config):
 def is_stochastic(cfg: Config) -> bool:
     """Models with a learned prior/posterior (KL term in the loss)."""
     return cfg.model in ("svg", "svg_vec")
+
+
+def load_model(cfg: Config, ckpt_path=None, device="cuda"):
+    """An inference model of cfg.model on `device`: the weights of a
+    ckpt_<step>.npz of either package's trainer, or random ones from
+    cfg.seed without one."""
+    from robot_aware_control_tpu_torch import convert
+    from robot_aware_control_tpu_torch.training import checkpoint as ckpt
+
+    model = get_model(cfg).init(cfg, cfg.seed, device)
+    if ckpt_path:
+        params, bn = convert.jax_flat_trees(model)
+        trees, _ = ckpt.load_checkpoint(ckpt_path, {"params": params,
+                                                    "bn": bn})
+        model.load_state_dict(
+            convert.state_dict_from_flat(trees["params"], trees["bn"]),
+            strict=True)
+    return model

@@ -132,10 +132,29 @@ class CEMPolicy:
         inputs = tuple(None if a is None else
                        torch.tensor(a, device=self.device) for a in inputs)
         if rng is None:
-            rng = torch.Generator(device=self.device)
-            rng.manual_seed(self.cfg.seed + 7919 * ep_num + step)
+            rng = self._generator(ep_num, step)
         mean0, std0 = self.init_mean_std(T, opt_traj)
         return inputs, rng, mean0, std0
+
+    def _generator(self, ep_num, step) -> torch.Generator:
+        """The request's generator on the device, seeded with cfg.seed +
+        7919 * ep_num + step as the JAX package seeds its key."""
+        rng = torch.Generator(device=self.device)
+        rng.manual_seed(self.cfg.seed + 7919 * ep_num + step)
+        return rng
+
+    def _noise(self, noise):
+        """Injected action noise (opt_iter, N, horizon-1, action_dim) as a
+        tensor on the device, or None."""
+        if noise is None:
+            return None
+        noise = torch.tensor(np.asarray(noise), dtype=torch.float32,
+                             device=self.device)
+        want = (self.opt_iter, self.num_candidates, self.horizon - 1,
+                self.action_dim)
+        if tuple(noise.shape) != want:
+            raise ValueError(f"noise must be {want}, got {tuple(noise.shape)}")
+        return noise
 
     @torch.inference_mode()
     def _plan(self, preps, noise=None):
@@ -203,14 +222,7 @@ class CEMPolicy:
         (opt_iter, N, horizon-1, action_dim), replaces the sampled action
         noise (for tests)."""
         prep = self._host_prep(start, goal, ep_num, step, opt_traj, rng)
-        if noise is not None:
-            noise = torch.tensor(np.asarray(noise), dtype=torch.float32,
-                                 device=self.device)
-            want = (self.opt_iter, self.num_candidates, self.horizon - 1,
-                    self.action_dim)
-            if tuple(noise.shape) != want:
-                raise ValueError(f"noise must be {want}, got {tuple(noise.shape)}")
-        mean = self._plan([prep], noise)[0].cpu().numpy()
+        mean = self._plan([prep], self._noise(noise))[0].cpu().numpy()
         if self.cfg.debug_cem:
             self._plot_rollouts(mean, start, goal, ep_num, step)
         return mean

@@ -8,6 +8,7 @@ horizon in place of `lax.scan`.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,8 +30,15 @@ DEFAULT_PITCH = 1.3
 DEFAULT_ROLL = 0.0
 
 
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple, dtype, device):
+    """A constant vector as a tensor, made once per device and type (a
+    host-to-device copy per call would sync the host)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _base_offset(like):
-    return torch.tensor(BASE_OFFSET, dtype=like.dtype, device=like.device)
+    return _const(BASE_OFFSET, like.dtype, like.device)
 
 
 def ik(eef_pos, alpha, cur_config, l3: float = L3):
@@ -44,7 +52,8 @@ def ik(eef_pos, alpha, cur_config, l3: float = L3):
 
     X = torch.sqrt(x * x + y * y)
     Y = z
-    alpha = torch.as_tensor(alpha, dtype=X.dtype, device=X.device).expand(X.shape)
+    alpha = (alpha.to(X.dtype).expand(X.shape) if torch.is_tensor(alpha)
+             else torch.full_like(X, alpha))
     p3x = X - L4 * torch.cos(alpha)
     p3y = Y - L4 * torch.sin(alpha)
 
@@ -162,8 +171,8 @@ def integrate_pick_actions(start_eef, start_qpos, actions,
     (T, ..., >=3) in env units. Returns (states (T+1, ..., 5) rows
     [x, y, z, 0, 0], qpos (T+1, ..., 5))."""
     like = start_eef
-    lo = torch.tensor(PICK_WS_LOW, dtype=like.dtype, device=like.device)
-    hi = torch.tensor(PICK_WS_HIGH, dtype=like.dtype, device=like.device)
+    lo = _const(PICK_WS_LOW, like.dtype, like.device)
+    hi = _const(PICK_WS_HIGH, like.dtype, like.device)
     eef = start_eef[..., :3]
     q = start_qpos
     eefs, qs = [eef], [q]

@@ -13,7 +13,7 @@ the gripper capsule's radius.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,30 +45,44 @@ LOCOBOT_BASE_RADII = np.asarray(_lt.LOCOBOT_BASE_RADII, np.float32)
 
 
 class CapsuleMaskRenderer:
-    """Projects FK capsules (4 arm links + 4 static base capsules) into the
-    image plane of the camera registered under `camera_key`
-    (data/calibration.py; a controller may register its own calibration
-    there first)."""
+    """Projects FK capsules (4 arm links and, with include_base, the static
+    base capsules) into the image plane of the camera registered under
+    `camera_key` (data/calibration.py; a controller may register its own
+    calibration there first) with the intrinsics of `cam_name`. `radii`
+    replaces the arm's 4 radii (the modified robot's thicker links),
+    `base_segments` (B, 2, 3) and `base_radii` (B,) the base's capsules."""
 
     def __init__(self, image_size: Tuple[int, int] = (48, 64),  # (h, w)
-                 camera_key: str = "locobot_c0", thick: bool = False,
-                 modified: bool = False, device="cuda"):
+                 camera_key: str = "locobot_c0",
+                 cam_name: str = "intel_realsense_d435",
+                 radii: Optional[np.ndarray] = None, thick: bool = False,
+                 modified: bool = False, include_base: bool = True,
+                 base_segments: Optional[np.ndarray] = None,
+                 base_radii: Optional[np.ndarray] = None, device="cuda"):
         self.h, self.w = image_size
         dev = resolve_device(device)
+        self.device = dev
         w2c = calib.get_world_to_camera(camera_key)
-        K = calib.CAM_INTRINSICS["intel_realsense_d435"]
-        ow, oh = calib.CAM_RESOLUTION["intel_realsense_d435"]
+        K = calib.CAM_INTRINSICS[cam_name]
+        ow, oh = calib.CAM_RESOLUTION[cam_name]
         self._w2c = torch.tensor(w2c, dtype=torch.float32, device=dev)
         # fold the target-resolution rescale into the intrinsics
         S = np.diag([self.w / ow, self.h / oh, 1.0])
         self._K = (S @ K).astype(np.float32)
-        r = LOCOBOT_RADII.copy()
+        r = (LOCOBOT_RADII if radii is None
+             else np.asarray(radii, np.float32)).copy()
         if thick:  # gripper-only inflation, like locobot_thick.xml
             r[-1] = r[-1] * THICK_SCALE
         self.l3 = lk.L3_MODIFIED if modified else lk.L3
-        self.base_segments = torch.tensor(LOCOBOT_BASE_SEGMENTS, device=dev)
-        self.radii = torch.tensor(np.concatenate([r, LOCOBOT_BASE_RADII]),
-                                  device=dev)
+        if include_base:
+            bs = (LOCOBOT_BASE_SEGMENTS if base_segments is None
+                  else np.asarray(base_segments, np.float32))
+            br = (LOCOBOT_BASE_RADII if base_radii is None
+                  else np.asarray(base_radii, np.float32))
+        else:
+            bs, br = np.zeros((0, 2, 3), np.float32), np.zeros(0, np.float32)
+        self.base_segments = torch.tensor(bs, device=dev)
+        self.radii = torch.tensor(np.concatenate([r, br]), device=dev)
 
     def _project(self, pts):
         """world (..., 3) -> (u (...,), v (...,), depth (...,))."""

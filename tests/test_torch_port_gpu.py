@@ -18,7 +18,9 @@ from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
-from robot_aware_control_tpu_torch.planning.rollout import RolloutEngine
+from robot_aware_control_tpu_torch.envs.variants import make
+from robot_aware_control_tpu_torch.planning.gt_rollout import GTPushCEMPolicy
+from robot_aware_control_tpu_torch.planning.rollout import RolloutEngine, prepare_goals
 from robot_aware_control_tpu_torch.training.step import make_eval_step
 from robot_aware_control_tpu_torch.utils.state import DemoGoalState, State
 from torch_chain_cases import (
@@ -51,6 +53,19 @@ from torch_family_cases import (
 from torch_family_cases import small_plan_parity as family_plan_parity
 from torch_family_cases import train_step_parity as family_train_parity
 from torch_mask_cases import MASK_CASES, mask_case
+from torch_sim_cases import (
+    GT_PLAN_TOL,
+    GT_SMALL,
+    IMG_TOL,
+    POS_TOL,
+    SIM_ENVS,
+    bridge_plan_check,
+    gt_mask_kernel_vs_plain,
+    gt_plans,
+    physics_card_vs_cpu,
+    push_goal,
+    small_gt_plan_parity,
+)
 from torch_serve_cases import (
     cell_invariance,
     plan_checks,
@@ -77,6 +92,9 @@ from torch_variant_cases import (
 )
 
 pytestmark = pytest.mark.gpu
+# the bridge's small plan: svg cut to g_dim 16, float32
+SMALL_SVG = dict(CANONICAL, g_dim=16, z_dim=4, compute_dtype="float32",
+                 horizon=3, opt_iter=2, action_candidates=6, topk=2)
 
 
 @pytest.fixture
@@ -760,3 +778,67 @@ def test_gpu_inverse_step_matches_cpu(cuda, monkeypatch, discretized):
     inverse_step_parity(cuda, discretized=discretized)
     if not discretized:
         inverse_learns(cuda)
+
+
+# ---------------------------------------------------------------- simulation
+@pytest.mark.parametrize("name", SIM_ENVS)
+def test_gpu_physics_and_render_match_cpu(cuda, name):
+    """20 scripted steps (contact; grab, carry, release, drop; a chain of
+    three blocks) on the card against the CPU: positions and joints within
+    POS_TOL, images within IMG_TOL, masks bit-equal."""
+    r = physics_card_vs_cpu(name, cuda)
+    assert r["pos_err"] <= POS_TOL and r["img_err"] <= IMG_TOL, r
+    assert r["mask_differ"] == 0, r
+
+
+def test_gpu_mask_kernel_matches_plain_at_gt_shape(cuda):
+    """The mask kernel at one GT CEM iteration's launch (100 candidates x 4
+    steps of thin capsules) and at one observation's, bit for bit."""
+    r = gt_mask_kernel_vs_plain(cuda)
+    assert (r["gt"]["M"], r["obs"]["M"]) == (400, 1)
+    assert r["gt"]["differ"] == r["obs"]["differ"] == 0, r
+
+
+def test_gpu_small_gt_plan_matches_cpu(cuda):
+    """A small GT plan in LocobotPush with injected noise, card vs CPU."""
+    assert small_gt_plan_parity(cuda) <= GT_PLAN_TOL
+
+
+def test_gpu_gt_plan_launches_the_mask_kernel_per_iteration(cuda):
+    """A canonical GT plan launches the mask kernel opt_iter times (all
+    N x T scenes of an iteration in one launch) and the cell never."""
+    gt = gt_plans(cuda, n_timed=1)
+    assert gt["launches"]["capsule_mask_render"] == 10
+
+
+def test_gpu_gt_plan_loop_makes_no_host_sync(cuda):
+    """The GT CEM loop (physics, render, costs, top-k, refit) runs without
+    a host sync: with PyTorch's sync debug mode at "error" a synchronizing
+    op raises (a host value copied to the card per call, as the IK's
+    constants would be, is one)."""
+    cfg = Config(**GT_SMALL)
+    env = make("LocobotPush", cfg, seed=1, device=cuda)
+    goal = push_goal(env)
+    policy = GTPushCEMPolicy(cfg, env)
+    goal_imgs, goal_masks, goal_states = (
+        torch.as_tensor(a, device=cuda) for a in prepare_goals(
+            goal, cfg.horizon - 1))
+    mean, std = policy.init_mean_std(cfg.horizon)
+    gen = policy._generator(0, 0)
+    policy._plan_gt(env.state, goal_imgs, goal_masks, goal_states, gen,
+                    mean, std)  # warm: builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = policy._plan_gt(env.state, goal_imgs, goal_masks, goal_states,
+                               gen, mean, std)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(plan).all()
+
+
+def test_gpu_bridged_plan_equals_converted_plan(cuda):
+    """A reference-layout state dict through torch_import plans on the card
+    as the same weights through convert.py, bit for bit."""
+    assert bridge_plan_check(cuda, fields=SMALL_SVG)["equal"]
+

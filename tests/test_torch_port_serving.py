@@ -117,14 +117,38 @@ def _start_goal(rng, states=False):
 
 # ------------------------------------------------------------ config etc.
 def test_config_serving_fields_match_jax():
-    """The serving fields exist with the JAX defaults and parse from the
-    command line; plan_quantize other than none raises."""
+    """The serving fields, and the fields of the simulated envs, the
+    episode runner and data collection, exist with the JAX defaults and
+    parse from the command line; plan_quantize other than none raises."""
     names = ["env", "plan_server_host", "plan_server_port",
              "dynamics_model_ckpt", "demo_cost", "pick_wide_x_std",
              "cem_open_loop", "replan_every", "max_episode_length",
-             "plan_quantize", "debug_cem"]
+             "plan_quantize", "debug_cem",
+             # the envs
+             "camera_name", "red_robot", "modified", "action_repeat",
+             "action_noise", "pixels_ob", "norobot_pixels_ob",
+             "most_recent_background", "robot_mask_with_obj", "inpaint_eef",
+             "depth_ob", "large_block", "multiview", "camera_ids",
+             "object_dist_threshold", "gripper_dist_threshold",
+             "temporal_beta", "push_dist", "robot_goal_distribution",
+             "invisible_demo",
+             # the episode runner
+             "use_env_dynamics", "demo_dir", "demo_timescale", "demo_type",
+             "goal_image_type", "subgoal_start", "sequential_subgoal",
+             "subgoal_step_limit", "world_cost_success", "robot_cost_success",
+             "subgoal_completion_bonus", "record_trajectory",
+             "record_trajectory_interval", "record_video_interval",
+             "cyclegan", "cyclegan_ckpt", "mbrl_algo", "object_demo_dir",
+             "debug_trajectory_path",
+             # collection
+             "collect_target", "num_episodes", "demo_length"]
     for n in names:
         assert getattr(Config(), n) == getattr(JConfig(), n), n
+    cfg, rest = argparser(["--camera_ids", "0,2", "--use_env_dynamics",
+                           "true", "--demo_timescale", "2"])
+    assert not rest
+    assert (cfg.camera_ids, cfg.use_env_dynamics, cfg.demo_timescale) == (
+        (0, 2), True, 2)
     cfg, rest = argparser(["--env", "LocobotPick", "--demo_cost", "true",
                            "--plan_server_port", "7000",
                            "--dynamics_model_ckpt", "c.npz"])
