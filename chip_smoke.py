@@ -242,9 +242,33 @@ Phases, each of which raises on failure:
                 finite summary; (e) a reference-layout state dict built on
                 the host, loaded on the card through torch_import, plans bit
                 for bit as the same weights loaded through convert.py.
+ 16. experiments the paper's pick and transfer experiments on the card
+                through the record route (h5py hidden if installed), at the
+                Config defaults' widths (svg, g_dim 128, z_dim 10, rnn_size
+                256, bf16; pick's plans at N = 30, horizon 5, opt_iter 10,
+                topk 5), cut in depth only (tests/torch_experiment_cases.py:
+                EXPERIMENT_CUTS, TRANSFER_CUTS): (a) 8 LocobotPick episodes
+                collected on the card into record shards: episodes/s, the
+                shards, the train/test split; (b) experiments.pick.main end
+                to end: collection, shards, training frames/s, the learned
+                pick episodes' plan latency a step (median) and env step
+                time, one plan's host syncs, the mask kernel's and the sm90
+                cell's launches over the run (each > 0), a finite
+                pick_results.json; (c) experiments.transfer.main end to
+                end: transfer_results.json (finite; its ratio printed, not
+                asserted) and the sm90 cell's launches, all of them in
+                eval_transfer; (d) the random-init I3D and the random FVD
+                embedder on the card against the CPU on the same weights
+                (1e-4 of the largest |output|, TF32 off), the I3D's embed
+                time for 16 videos of 10 frames at 48x64, evaluate_fvd of
+                (c)'s robot-aware checkpoint (finite, its caveat beside
+                it); (e) the runner's default CycleGAN translating on the
+                card as on the CPU (1e-4), one train_step on the card, and
+                a 2-step PushEpisodeRunner episode with --cyclegan (GT
+                dynamics) following a demo made by demo_from_history.
 
 Prints the card line, one JSON line each of the train, serve, variants,
-data, robots, families and sim phases and one of kernels (the mask kernel, the sm90 cell at the planner's
+data, robots, families, sim and experiments phases and one of kernels (the mask kernel, the sm90 cell at the planner's
 shapes and at det's, the WMMA kernel and the float32 kernel, each with its
 launches on its own path), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -313,6 +337,20 @@ from torch_train_small import (  # noqa: E402
     bench_batch,
     eval_kernel_vs_plain,
     train_step_parity,
+)
+from torch_experiment_cases import (  # noqa: E402
+    CYCLEGAN_TOL,
+    EMBED_TOL,
+    EXPERIMENT_CUTS,
+    I3D_TOL,
+    TRANSFER_CUTS,
+    cyclegan_card_vs_cpu,
+    cyclegan_episode,
+    flags,
+    i3d_card_vs_cpu,
+    random_embed_card_vs_cpu,
+    record_route,
+    videos,
 )
 from torch_data_cases import (  # noqa: E402
     RESIZE_TOL,
@@ -2151,6 +2189,323 @@ def check_sim(dev):
     return out
 
 
+# ----------------------------------------------------------- experiments
+def _stamped(owner, name, log):
+    """Wraps owner.name (a function or method) to append each call's
+    (start, end) host seconds to `log`; returns the original."""
+    orig = getattr(owner, name)
+
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            log.append((t0, time.perf_counter()))
+
+    setattr(owner, name, wrapped)
+    return orig
+
+
+class KernelInputs:
+    """While active, keeps a copy of the first inputs of each distinct
+    shape that the mask kernel's and the cell's wrappers are called with
+    (the main path's own tensors), to hold the kernels against their plain
+    versions on them afterwards."""
+
+    def __init__(self):
+        self.cells, self.masks = {}, {}
+
+    def __enter__(self):
+        self._cell, self._mask = kernels.conv_lstm_cell, kernels.capsule_mask_render
+
+        def cell(x, h, c, w, b):
+            key = (*x.shape, h.shape[-1], w.shape[0], str(x.dtype))
+            if key not in self.cells:
+                self.cells[key] = [t.detach().clone() for t in (x, h, c, w, b)]
+            return self._cell(x, h, c, w, b)
+
+        def mask(segs, h, w):
+            key = (*segs.shape[:2], h, w)
+            if key not in self.masks and len(segs):
+                self.masks[key] = segs.detach().clone()
+            return self._mask(segs, h, w)
+
+        kernels.conv_lstm_cell, kernels.capsule_mask_render = cell, mask
+        return self
+
+    def __exit__(self, *exc):
+        kernels.conv_lstm_cell, kernels.capsule_mask_render = self._cell, self._mask
+
+    def check(self, label: str) -> dict:
+        """Each recorded shape: the kernel against its plain version on the
+        recorded inputs (masks bit for bit, bf16 cells CELL_TOL), timed by
+        CUDA events beside the plain version."""
+        out = {"cells": [], "masks": []}
+        for key, args in sorted(self.cells.items()):
+            B, H, W, Cx, C, k, dt = key
+            if args[0].dtype != torch.bfloat16 or not kernels.takes_sm90(*args[:4]):
+                raise AssertionError(f"{label}: cell {key} did not take sm90")
+            tol = CELL_TOL[torch.bfloat16]
+            err = cell_err(kernels.conv_lstm_cell(*args),
+                           kernels.conv_lstm_cell_plain(*args), tol)
+            x, h, c, w, b = args
+            ms = cuda_ms(lambda: kernels.conv_lstm_cell(*args))
+            plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(*args), n=5)
+            xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            lib = cuda_ms(lambda: F.conv2d(xh, w_oihw, b.to(x.dtype),
+                                           padding=k // 2))
+            ops = 2.0 * B * valid_taps(H, W, k) * (Cx + C) * 4 * C
+            nbytes = 2 * (x.numel() + h.numel() + c.numel() + w.numel()
+                          + 2 * h.numel()) + 4 * b.numel()
+            bound, by = bound_ms(ops, PEAK_BF16, nbytes)
+            out["cells"].append(dict(B=B, H=H, W=W, Cx=Cx, C=C, k=k,
+                                     max_abs_err=err, ms=ms, plain_ms=plain,
+                                     library_ms=lib, bound_ms=bound,
+                                     bound_by=by))
+            print(f"{label}: sm90 cell at the run's own inputs B={B} {H}x{W} "
+                  f"Cx={Cx} C={C} k={k}: max |kernel - plain| {err:.3g} "
+                  f"(tolerance {tol}), {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"cuDNN gate conv {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        for key, segs in sorted(self.masks.items()):
+            M, S, h, w = key
+            got = kernels.capsule_mask_render(segs, h, w)
+            differ = int((got != kernels.capsule_mask_render_plain(segs, h, w)).sum())
+            if differ:
+                raise AssertionError(f"{label}: mask kernel differs at {key}")
+            ms = cuda_ms(lambda: kernels.capsule_mask_render(segs, h, w), n=200)
+            plain = cuda_ms(lambda: kernels.capsule_mask_render_plain(segs, h, w))
+            _, ops, _, bound, by = mask_bound(segs, h, w)
+            out["masks"].append(dict(M=M, S=S, h=h, w=w, differ=differ, ms=ms,
+                                     plain_ms=plain, bound_ms=bound,
+                                     bound_by=by, library_ms=None))
+            print(f"{label}: mask kernel at the run's own inputs M={M} S={S} "
+                  f"{h}x{w}: bit for bit, {ms:.5f} ms, plain {plain:.4f} ms, "
+                  f"bound {bound:.5f} ms ({by})")
+        return out
+
+
+def _train_fps(log_dir: str) -> float:
+    """The last train epoch's frames/s in a trainer's metrics.jsonl."""
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if "train/frames_per_sec" in r][-1][
+        "train/frames_per_sec"]
+
+
+def pick_experiment(d: str, dev) -> dict:
+    """Phase 16 (b): experiments.pick.main end to end on the card (record
+    route), timed by phase: collection, shards, training, the learned pick
+    episodes (plan latency and env step time a step); the host syncs of a
+    plan; the kernels' launches over the whole run."""
+    from robot_aware_control_tpu_torch.envs.locobot_pick import LocobotPickEnv
+    from robot_aware_control_tpu_torch.experiments import pick
+    from robot_aware_control_tpu_torch.planning.gt_rollout import DemoCEMPolicy
+
+    log_dir = os.path.join(d, "pick")
+    stamps = {k: [] for k in ("write", "train", "plan", "step")}
+    syncs = {}
+    plan = DemoCEMPolicy.get_action
+
+    def plan_counting(self, *a, **k):
+        if len(stamps["plan"]) == 1:  # the second plan: count its syncs
+            out = []
+            syncs.update(count_syncs(lambda: out.append(plan(self, *a, **k))))
+            return out[0]
+        return plan(self, *a, **k)
+
+    patched = [(pick, "write_training_records"), (PredictionTrainer, "train"),
+               (DemoCEMPolicy, "get_action"), (LocobotPickEnv, "step")]
+    DemoCEMPolicy.get_action = plan_counting
+    origs = [_stamped(owner, name, stamps[key]) for (owner, name), key in
+             zip(patched, ("write", "train", "plan", "step"))]
+    origs[2] = plan
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with KernelInputs() as inputs:
+            result = pick.main(flags(EXPERIMENT_CUTS)
+                               + ["--log_dir", log_dir, "--device", str(dev)])
+    finally:
+        for (owner, name), orig in zip(patched, origs):
+            setattr(owner, name, orig)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    (w0, w1), (tr0, tr1) = stamps["write"][0], stamps["train"][0]
+    plan_s = [b - a for a, b in stamps["plan"]]
+    ep_steps = [b - a for a, b in stamps["step"] if a > stamps["plan"][0][0]]
+    out = dict(seconds=seconds, collect_s=w0 - t0, shards_s=w1 - w0,
+               train_s=tr1 - tr0,
+               train_frames_per_s=_train_fps(os.path.join(log_dir, "pick_model")),
+               episodes_s=seconds - tr1 + t0, plans=len(plan_s),
+               plan_s_median=float(np.median(plan_s)),
+               env_step_s_median=float(np.median(ep_steps)),
+               plan_syncs=syncs, launches=launches,
+               summary=result["summary"], cuts=EXPERIMENT_CUTS)
+    if not (all(np.isfinite(v) for v in result["summary"].values())
+            and launches["capsule_mask_render"] > 0
+            and launches["conv_lstm_cell_sm90"] > 0):
+        raise AssertionError(f"pick experiment: summary {result['summary']}, "
+                             f"launches {launches}")
+    print(f"pick experiment ({EXPERIMENT_CUTS}, the record route): "
+          f"{seconds:.1f} s; collection {out['collect_s']:.2f} s, shards "
+          f"{out['shards_s']:.2f} s, training {out['train_s']:.1f} s at "
+          f"{out['train_frames_per_s']:.1f} frames/s, {out['plans']} learned "
+          f"pick plans at {out['plan_s_median']:.4f} s a step (median), env "
+          f"step {out['env_step_s_median'] * 1e3:.2f} ms; a plan's host syncs "
+          f"{sum(syncs.values())} {syncs}; launches {launches}; summary "
+          f"{result['summary']}")
+    out["kernels_vs_plain"] = inputs.check("pick")
+    return out
+
+
+def transfer_experiment(d: str, dev) -> dict:
+    """Phase 16 (c): experiments.transfer.main end to end on the card
+    (record route); the sm90 cell's launches in its eval_transfer (the
+    trainers run no eval epoch: every cell launch of the run is the
+    eval's)."""
+    from robot_aware_control_tpu_torch.experiments import transfer
+
+    log_dir = os.path.join(d, "transfer")
+    evals = []
+    orig = _stamped(transfer, "eval_transfer", evals)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with KernelInputs() as inputs:
+            result = transfer.main(flags(TRANSFER_CUTS)
+                                   + ["--log_dir", log_dir, "--device", str(dev)])
+    finally:
+        transfer.eval_transfer = orig
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    out = dict(seconds=seconds, eval_s=[b - a for a, b in evals],
+               launches=launches, result=result, cuts=TRANSFER_CUTS,
+               log_dir=log_dir)
+    finite = all(np.isfinite(v) for k in ("robot_aware", "vanilla")
+                 for v in result[k].values())
+    if not (finite and launches["conv_lstm_cell_sm90"] > 0):
+        raise AssertionError(f"transfer experiment: {result}, {launches}")
+    print(f"transfer experiment ({TRANSFER_CUTS}, the record route): "
+          f"{seconds:.1f} s, eval_transfer "
+          + ", ".join(f"{v:.2f}" for v in out["eval_s"])
+          + f" s; launches {launches}; world MSE ratio vanilla / robot-aware "
+          f"{result['world_mse_ratio_vanilla_over_ra']} (one epoch: not a "
+          f"result); {json.dumps(result)}")
+    out["kernels_vs_plain"] = inputs.check("transfer")
+    return out
+
+
+def fvd_checks(dev, transfer_out: dict) -> dict:
+    """Phase 16 (d): the random-init I3D and the random embedder on the
+    card against the CPU (TF32 off), the I3D's embed time for 16 videos of
+    10 frames at 48x64, and evaluate_fvd of the transfer run's robot-aware
+    checkpoint over its training episodes' shards."""
+    from robot_aware_control_tpu_torch.data.records import create_record_loaders
+    from robot_aware_control_tpu_torch.evaluation import i3d
+    from robot_aware_control_tpu_torch.evaluation.evaluate_checkpoint import (
+        evaluate_fvd,
+    )
+    from robot_aware_control_tpu_torch.evaluation.fvd import make_i3d_embed_fn
+    from robot_aware_control_tpu_torch.experiments import transfer
+    from robot_aware_control_tpu_torch.config import argparser
+
+    out = {"i3d": i3d_card_vs_cpu(dev),
+           "random_embedder": random_embed_card_vs_cpu(dev)}
+    print(f"I3D (seed 42) card vs CPU, 2 videos of 8 frames at 48x64: "
+          f"{out['i3d']['rel_err']:.3g} of the largest |logit| (tolerance "
+          f"{I3D_TOL}); random embedder {out['random_embedder']['rel_err']:.3g}"
+          f" (tolerance {EMBED_TOL})")
+    if not (out["i3d"]["rel_err"] <= I3D_TOL and out["i3d"]["finite"]
+            and out["random_embedder"]["rel_err"] <= EMBED_TOL):
+        raise AssertionError(f"FVD embedders on the card differ: {out}")
+    model = i3d.init(42, dev)
+    x = torch.from_numpy(videos(16, 10, 48, 64)).to(dev)
+    # some 400 launches a call fill the launch queue behind a sleeping
+    # kernel, so CUDA events time 5 calls back to back after a warm-up,
+    # the host's launch gaps included
+    embed = lambda: i3d.embed(model, x)
+    embed()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(5):
+        embed()
+    ev[1].record()
+    torch.cuda.synchronize()
+    out["i3d_embed_ms"] = ev[0].elapsed_time(ev[1]) / 5
+    print(f"I3D embed of 16 videos of 10 frames at 48x64: "
+          f"{out['i3d_embed_ms']:.3f} ms a call (CUDA events over 5 calls)")
+    del model
+    ra, _ = transfer.pair_cfgs(argparser(flags(dict(
+        TRANSFER_CUTS, log_dir=transfer_out["log_dir"])))[0])
+    ckpt_path = ckpt.latest_checkpoint(os.path.join(ra.log_dir, ra.jobname))
+    train, _ = create_record_loaders(ra, os.path.join(ra.data_root, "records"))
+    kernels.reset_launches()
+    r = evaluate_fvd(ra.replace(jobname="fvd_eval"), ckpt_path, loader=train,
+                     embed_fn=make_i3d_embed_fn(device=dev), device=dev)
+    out["evaluate_fvd"] = dict(r, sm90_launches=kernels.launches[
+        "conv_lstm_cell_sm90"])
+    print(f"evaluate_fvd (robot-aware checkpoint, random-init I3D): {r}")
+    if not (np.isfinite(r["fvd"]) and r.get("fvd_caveat")):
+        raise AssertionError(f"evaluate_fvd: {r}")
+    return out
+
+
+def cyclegan_checks(dev, d: str) -> dict:
+    """Phase 16 (e): the runner's default CycleGAN on the card against the
+    CPU (TF32 off), one train_step, and a 2-step push episode with
+    --cyclegan."""
+    out = {"card_vs_cpu": cyclegan_card_vs_cpu(dev)}
+    r = out["card_vs_cpu"]
+    print(f"CycleGAN translator card vs CPU: {r['max_diff']:.3g} (tolerance "
+          f"{CYCLEGAN_TOL}); one train_step on the card: {r['losses']}")
+    if not (r["finite"] and r["max_diff"] <= CYCLEGAN_TOL):
+        raise AssertionError(f"CycleGAN on the card: {r}")
+    kernels.reset_launches()
+    ep = cyclegan_episode(dev, d)
+    ep["launches"] = dict(kernels.launches)
+    out["episode"] = ep
+    print(f"push episode with --cyclegan (GT dynamics): {ep}")
+    if not (ep["finite"] and len(ep["actions"]) == 2 and ep["translated"] == 2):
+        raise AssertionError(f"cyclegan episode: {ep}")
+    return out
+
+
+def check_experiments(dev) -> dict:
+    """Phase 16 (see the module docstring). Returns its JSON line's dict."""
+    from robot_aware_control_tpu_torch.data import demo_io
+
+    out = {"h5py_installed": demo_io.has_h5py()}
+    print(f"h5py installed: {out['h5py_installed']}; the experiments take "
+          "the record route")
+    here = os.path.dirname(os.path.abspath(__file__))
+    hidden = sys.modules.get("h5py", False)
+    sys.modules["h5py"] = None  # the route of a machine without it
+    try:
+        with tempfile.TemporaryDirectory(dir=here) as d:
+            kernels.reset_launches()
+            r = record_route(os.path.join(d, "route", "data_pick"), dev, n=8)
+            r["launches"] = dict(kernels.launches)
+            out["record_route"] = r
+            print(f"record route: 8 LocobotPick episodes collected on the "
+                  f"card in {r['collect_s']:.2f} s and written as "
+                  f"{r['shards']} shard(s), {r['episodes_per_s']:.2f} "
+                  f"episodes/s; split train {r['train']}, test {r['test']}; "
+                  f"launches {r['launches']}")
+            out["pick"] = pick_experiment(d, dev)
+            out["transfer"] = transfer_experiment(d, dev)
+            out["fvd"] = fvd_checks(dev, out["transfer"])
+            out["cyclegan"] = cyclegan_checks(dev, d)
+    finally:
+        if hidden is False:
+            del sys.modules["h5py"]
+        else:
+            sys.modules["h5py"] = hidden
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2276,6 +2631,31 @@ def main() -> int:
     print(f"phase sim took {sim['seconds']:.1f} s; the script "
           f"{sim['script_seconds']:.1f} s so far")
     print(json.dumps({"sim": dict(sim, card=card)}))
+
+    # the paper's experiments on the record route, FVD, the CycleGAN
+    t = phase("experiments")
+    exp = check_experiments(dev)
+    exp["seconds"] = time.perf_counter() - t
+    exp["script_seconds"] = time.perf_counter() - t_start
+    for name, key in (("capsule_mask_render", "pick"),
+                      ("conv_lstm_cell_sm90", "pick"),
+                      ("capsule_mask_render", "transfer"),
+                      ("conv_lstm_cell_sm90", "transfer")):
+        entry = mask_entry if name == "capsule_mask_render" else cell_entry
+        entry[f"launches_{key}_experiment"] = exp[key]["launches"][name]
+    mask_entry["launches_record_route"] = exp["record_route"]["launches"][
+        "capsule_mask_render"]
+    mask_entry["launches_cyclegan_episode"] = exp["cyclegan"]["episode"][
+        "launches"]["capsule_mask_render"]
+    cell_entry["launches_evaluate_fvd"] = exp["fvd"]["evaluate_fvd"][
+        "sm90_launches"]
+    for key in ("pick", "transfer"):
+        checks = exp[key]["kernels_vs_plain"]
+        cell_entry[f"{key}_experiment_inputs"] = checks["cells"]
+        mask_entry[f"{key}_experiment_inputs"] = checks["masks"]
+    print(f"phase experiments took {exp['seconds']:.1f} s; the script "
+          f"{exp['script_seconds']:.1f} s so far")
+    print(json.dumps({"experiments": dict(exp, card=card)}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

@@ -1,5 +1,6 @@
-"""Robot control: the visual MPC controller, its socket bridge and plan
-serving. EpisodeRunner waits for the envs."""
+"""Robot control: the visual MPC controller, its socket bridge and ROS
+adapter, AprilTag calibration (apriltag.py), plan serving, and the
+episode runners (episode_runner.py)."""
 
 from robot_aware_control_tpu_torch.control.plan_server import (
     PlanClient,

@@ -67,7 +67,8 @@ class EpisodeRunner:
     """Clutter-push runner (reference: episode_runner.py:25-296). `model`
     is the learned model the non-GT route plans with; `translator` maps an
     observation before planning (the reference's CycleGAN,
-    push_episode_runner.py:264-283)."""
+    push_episode_runner.py:264-283), by default under --cyclegan the
+    CycleGAN of baselines/cyclegan.py with --cyclegan_ckpt's weights."""
 
     env_cls = ClutterPushEnv
     policy_cls = CEMPolicy
@@ -75,12 +76,22 @@ class EpisodeRunner:
 
     def __init__(self, cfg: Config, model=None, translator=None,
                  device="cuda"):
-        if translator is None and cfg.cyclegan:
-            raise NotImplementedError(
-                "--cyclegan: the CycleGAN translator (baselines/cyclegan.py) "
-                "is not ported yet (ROADMAP.md, section 1 item 9.5)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if translator is None and cfg.cyclegan:
+            # CycleGAN observation translation for cross-domain transfer
+            # (reference: push_episode_runner.py:264-283, --cyclegan): a
+            # CycleGAN of cfg.seed, its weights from --cyclegan_ckpt
+            from robot_aware_control_tpu_torch.baselines.cyclegan import (
+                CycleGANTranslator,
+                init,
+                load_cyclegan_checkpoint,
+            )
+
+            nets = init(cfg.seed, device=self.device)
+            if cfg.cyclegan_ckpt:
+                load_cyclegan_checkpoint(nets, cfg.cyclegan_ckpt)
+            translator = CycleGANTranslator(nets, "ab")
         self.log_dir = make_log_folder(cfg)
         self.logger = RunLogger(cfg, self.log_dir)
         self.env = self.env_cls(cfg, seed=cfg.seed, device=self.device)

@@ -7,13 +7,10 @@ execution (optionally open-loop, visual_MPC_controller.py:319-340). The
 controller talks to a `RobotInterface` (camera frame, eef state and qpos,
 action execution), so the same class drives a simulation env
 (`SimRobotInterface`), a socket bridge to the robot host
-(`RobotBridgeServer` / `SocketRobotInterface`) or a hardware adapter.
-
-Not ported yet: the ROS adapter (`ROSRobotInterface`, `make_ros_interface`,
-which need a ROS host) and the AprilTag calibration
-(`calibrate_extrinsics` raises until control/apriltag.py is ported; a
-calibration measured elsewhere registers with
-data/calibration.py:register_camera).
+(`RobotBridgeServer` / `SocketRobotInterface`) or the ROS adapter
+(`ROSRobotInterface`, built by `make_ros_interface` on a host with rospy,
+which raises without it). `calibrate_extrinsics` registers the camera
+from an AprilTag on the arm (control/apriltag.py).
 
 The wire protocol is the JAX package's, byte for byte: per message an
 8-byte little-endian (header length, payload length), a JSON header, and a
@@ -100,11 +97,21 @@ class VisualMPCController:
                              tag_size: float = 0.0353,
                              offset=(0.0, -0.015, 0.0125),
                              detector=None, codebook=None):
-        """AprilTag camera calibration (reference get_cam_calibration,
-        visual_MPC_controller.py:152-219)."""
-        raise NotImplementedError(
-            "AprilTag calibration waits for control/apriltag.py; register a "
-            "measured calibration with data.calibration.register_camera")
+        """AprilTag camera calibration (reference get_cam_calibration /
+        set_camera_calibration, visual_MPC_controller.py:152-219): grab a
+        frame, detect the arm-mounted tag, compose camera-to-base from the
+        FK tag pose, and register the extrinsics under `camera_key`
+        (data/calibration.py:register_camera), so that every later mask
+        render uses them. The defaults are the reference rig's tag size
+        (:135) and measured position offset (:204). Returns the 4x4
+        camera-to-base, or None where no tag is found."""
+        from robot_aware_control_tpu_torch.control.apriltag import (
+            calibrate_camera_from_tag,
+        )
+
+        return calibrate_camera_from_tag(
+            camera_key, self.robot.get_image(), tag_T_base, K, tag_size,
+            offset=offset, codebook=codebook, detector=detector)
 
     def collect_goal_img(self):
         """Capture the current camera frame as the goal."""
@@ -275,3 +282,89 @@ class SocketRobotInterface:
             self._call("close")
         finally:
             self._sock.close()
+
+
+class ROSRobotInterface:
+    """ROS adapter (reference: locobot_rospkg/nodes/
+    visual_MPC_controller.py:60-219: RealSense image subscriber, eef
+    service client, PyRobot command publisher). Built by
+    `make_ros_interface` on a host with rospy; without ROS use
+    SimRobotInterface or the socket bridge above."""
+
+    def __init__(self, cfg: Config,
+                 image_topic: str = "/camera/color/image_raw",
+                 joint_topic: str = "/joint_states",
+                 eef_topic: str = "/eef_pose"):
+        import rospy
+        from geometry_msgs.msg import PoseStamped, Twist
+        from sensor_msgs.msg import Image, JointState
+
+        self.cfg = cfg
+        self._img = None
+        self._qpos = None
+        self._eef = None
+        rospy.init_node("rac_tpu_visual_mpc", anonymous=True)
+        rospy.Subscriber(image_topic, Image, self._on_image, queue_size=1)
+        rospy.Subscriber(joint_topic, JointState, self._on_joints,
+                         queue_size=1)
+        rospy.Subscriber(eef_topic, PoseStamped, self._on_eef, queue_size=1)
+        self._cmd_pub = rospy.Publisher("/rac_tpu/eef_delta", Twist,
+                                        queue_size=1)
+        self._twist = Twist
+        self._rospy = rospy
+
+    def _on_image(self, msg):
+        h, w = msg.height, msg.width
+        img = np.frombuffer(msg.data, np.uint8).reshape(h, w, -1)[..., :3]
+        self._img = img.astype(np.float32) / 255.0
+
+    def _on_joints(self, msg):
+        self._qpos = np.asarray(msg.position, np.float32)
+
+    def _on_eef(self, msg):
+        p = msg.pose.position
+        self._eef = np.array([p.x, p.y, p.z, 0.0, 0.0], np.float32)
+
+    def _wait(self, attr):
+        while getattr(self, attr) is None and not self._rospy.is_shutdown():
+            self._rospy.sleep(0.05)
+        return getattr(self, attr)
+
+    def get_image(self):
+        return self._wait("_img")
+
+    def get_eef_state(self):
+        return self._wait("_eef")
+
+    def get_qpos(self):
+        return self._wait("_qpos")
+
+    def execute_action(self, action):
+        t = self._twist()
+        a = np.asarray(action, np.float32).ravel()
+        t.linear.x, t.linear.y = float(a[0]), float(a[1])
+        t.linear.z = float(a[2]) if len(a) > 2 else 0.0
+        self._cmd_pub.publish(t)
+        self._rospy.sleep(getattr(self.cfg, "real_robot_step_time", 0.5))
+
+    def move_to(self, eef_target):
+        for _ in range(40):
+            eef = self.get_eef_state()
+            delta = np.asarray(eef_target, np.float32)[:3] - eef[:3]
+            if np.linalg.norm(delta) < 0.01:
+                return
+            self.execute_action(np.clip(delta, -0.05, 0.05))
+
+
+def make_ros_interface(cfg: Config) -> ROSRobotInterface:
+    """The ROS wiring, import-gated so that hosts without ROS never import
+    rospy (reference node: visual_MPC_controller.py:60-219)."""
+    try:
+        import rospy  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            "rospy not available — real-robot control requires a ROS host. "
+            "Use SimRobotInterface, or SocketRobotInterface against a "
+            "RobotBridgeServer running on the robot host."
+        ) from e
+    return ROSRobotInterface(cfg)

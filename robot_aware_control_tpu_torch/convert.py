@@ -24,7 +24,12 @@ module paths:
 go from JAX to the port, `jax_flat_trees` back. The robot MLPs' trees
 `{"l1", "l2", "l3", "out"} x {"w" (in, out), "b"}` map to `nn.Linear`
 state dicts (weight (out, in)) through `robot_mlp_state_dict` and back
-through `robot_mlp_tree`. The optimizer state maps
+through `robot_mlp_tree`. The CycleGAN baseline's `CycleGANParams` (g_ab,
+g_ba, d_a, d_b: convolutions, the up-sampling transpose convolutions'
+HWIO kernels, instance norms {"scale", "bias"}) map to
+`baselines/cyclegan.py:CycleGANNets` through `cyclegan_state_dict` and
+back through `cyclegan_flat`, whose keys are the JAX checkpoint's
+(`.g_ab['blocks'][0]['c1']['w']`). The optimizer state maps
 to optax's: adam `[0].count`, `[0].mu[...]`, `[0].nu[...]`
 (`torch.optim.Adam`'s step, exp_avg, exp_avg_sq), rmsprop `[0].nu[...]`,
 sgd nothing.
@@ -39,6 +44,7 @@ import torch
 
 from torch import nn
 
+from robot_aware_control_tpu_torch.baselines.cyclegan import InstanceNorm
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models.cdna import CDNA, CDNARobonet
 from robot_aware_control_tpu_torch.models.det import Det
@@ -127,7 +133,7 @@ def _jax_leaf(model: nn.Module, name: str):
     if isinstance(module, BatchNorm):
         tree, jleaf = _BN_LEAF[leaf]
         return tree, path + [jleaf], None
-    if isinstance(module, GroupNorm):
+    if isinstance(module, (GroupNorm, InstanceNorm)):
         return "params", path + ["scale" if leaf == "weight" else "bias"], None
     if leaf != "weight":
         return "params", path + ["b"], None
@@ -275,3 +281,38 @@ def robot_mlp_tree(mlp: nn.Module) -> dict:
         out[keystr([layer, "w" if leaf == "weight" else "b"])] = _to_jax(
             t, (1, 0) if leaf == "weight" else None)
     return out
+
+
+_FIELD_KEY = re.compile(r"\.(\w+)(.*)")
+
+
+def cyclegan_state_dict(params) -> dict:
+    """The JAX package's CycleGANParams (a NamedTuple or a dict of its four
+    fields, numpy or JAX arrays) -> the state dict of the port's
+    `CycleGANNets` (float32)."""
+    tree = params._asdict() if hasattr(params, "_asdict") else dict(params)
+    return _state_dict(_leaves(tree))
+
+
+def cyclegan_flat(nets: nn.Module) -> dict:
+    """The port's `CycleGANNets` -> {key: array} with the JAX checkpoint's
+    keys (`jax.tree_util.keystr` of CycleGANParams), float32 numpy in the
+    JAX layouts."""
+    out = {}
+    for name, t in nets.state_dict().items():
+        _, path, perm = _jax_leaf(nets, name)
+        out[f".{path[0]}{keystr(path[1:])}"] = _to_jax(t, perm)
+    return out
+
+
+def cyclegan_state_dict_from_flat(flat: dict) -> dict:
+    """Inverse of `cyclegan_flat`: the JAX checkpoint's {key: array} ->
+    the port's state dict."""
+    leaves = []
+    for key, arr in flat.items():
+        m = _FIELD_KEY.fullmatch(key)
+        if m is None:
+            raise ValueError(f"not a CycleGANParams key: {key!r}")
+        leaves.append(((m.group(1),) + parse_keystr(m.group(2)),
+                       np.asarray(arr, np.float32)))
+    return _state_dict(leaves)

@@ -7,8 +7,11 @@ collect_clutter_data.py, collect_pick_data.py, collect_push_data.py,
 collect_mask_data.py): run scripted behaviors in the simulator and store
 observations/states/actions/masks/qpos trajectories that the training
 dataloader reads back (data/robonet_hdf5.py). The envs run on `device`
-(the GPU unless the caller asks for the CPU). Every writer needs h5py; where
-it is missing they raise ImportError naming it before any episode runs.
+(the GPU unless the caller asks for the CPU). Every HDF5 writer needs h5py;
+where it is missing they raise ImportError naming it before any episode
+runs. Without h5py, `training_episodes` and `write_training_records` take
+the same episodes to record shards (data/records.py), which the trainer
+reads with the experiment's split (`PredictionTrainer(record_dir=)`).
 
     python -m robot_aware_control_tpu_torch.data.collect --env LocobotPush \
         --collect_target demos --demo_dir <dir> --num_episodes 4 [--device cpu]
@@ -18,13 +21,18 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from robot_aware_control_tpu_torch.config import Config, argparser
 from robot_aware_control_tpu_torch.data.demo_io import require_h5py
-from robot_aware_control_tpu_torch.data.robonet_hdf5 import write_trajectory_hdf5
+from robot_aware_control_tpu_torch.data.records import write_records
+from robot_aware_control_tpu_torch.data.robonet_hdf5 import (
+    RoboNetHDF5Dataset,
+    episode_arrays,
+    write_trajectory_hdf5,
+)
 
 
 _BEHAVIORS = {
@@ -41,16 +49,17 @@ def _make_env(env_name: str, cfg: Optional[Config], seed: int, device):
     return make(env_name, cfg, seed=seed, device=device)
 
 
-def collect_training_data(env_name: str, n_episodes: int, out_dir: str,
-                          cfg: Optional[Config] = None, seed: int = 0,
-                          viewpoint: str = "locobot_c0", device="cuda"):
-    """Writes `<out_dir>/<viewpoint>/traj_<seed>_<i>.hdf5` episodes."""
-    require_h5py()
+def training_episodes(env_name: str, n_episodes: int, out_dir: str,
+                      cfg: Optional[Config] = None, seed: int = 0,
+                      viewpoint: str = "locobot_c0",
+                      device="cuda") -> Iterator[Tuple[str, dict]]:
+    """The episodes `collect_training_data` writes, one at a time, in
+    memory: (the file path it would write, the episode as the file would
+    hold it: images quantized to uint8, masks cast to bool;
+    robonet_hdf5.episode_arrays)."""
     env = _make_env(env_name, cfg, seed, device)
     behavior, robot = _BEHAVIORS.get(env_name, ("straight_push", "locobot"))
     folder = os.path.join(out_dir, viewpoint)
-    os.makedirs(folder, exist_ok=True)
-    paths = []
     for i in range(n_episodes):
         hist = env.generate_demo(behavior)
         obs = hist["obs"]
@@ -63,12 +72,48 @@ def collect_training_data(env_name: str, n_episodes: int, out_dir: str,
         masks = np.stack([o["masks"] for o in obs]).astype(bool)
         qpos = np.stack([o["qpos"] for o in obs])
         acs = np.stack(hist["ac"])[: T - 1]
-        path = os.path.join(folder, f"traj_{seed}_{i}.hdf5")
-        write_trajectory_hdf5(
-            path, images, states, acs, masks, qpos, robot=robot,
-        )
+        yield (os.path.join(folder, f"traj_{seed}_{i}.hdf5"),
+               episode_arrays(images, states, acs, masks, qpos, robot=robot))
+
+
+def collect_training_data(env_name: str, n_episodes: int, out_dir: str,
+                          cfg: Optional[Config] = None, seed: int = 0,
+                          viewpoint: str = "locobot_c0", device="cuda"):
+    """Writes `<out_dir>/<viewpoint>/traj_<seed>_<i>.hdf5` episodes."""
+    require_h5py()
+    os.makedirs(os.path.join(out_dir, viewpoint), exist_ok=True)
+    paths = []
+    for path, ep in training_episodes(env_name, n_episodes, out_dir, cfg,
+                                      seed, viewpoint, device):
+        write_trajectory_hdf5(path, ep["observations"], ep["states"],
+                              ep["actions"], ep["masks"], ep["qpos"],
+                              robot=ep["robot"])
         paths.append(path)
     return paths
+
+
+def write_training_records(episodes: Sequence[Tuple[str, dict]],
+                           record_dir: str, cfg: Config,
+                           viewpoint: str = "locobot_c0",
+                           episodes_per_shard: int = 64) -> List[str]:
+    """Record shards (data/records.py) of episodes in memory
+    (`training_episodes`), preprocessed by the HDF5 reader under `cfg` (its
+    RandomState seeded with cfg.seed) and cut to
+    cfg.video_length frames, each under the file path the HDF5 route
+    would have written: the shards `convert_to_records` makes of those
+    files, bit for bit. Returns the shard paths.
+
+    This is the collection-to-training route of a machine without h5py, a
+    seam and not a feature. Like `convert_to_records`, it freezes one
+    window an episode: an episode longer than cfg.video_length gets one
+    start drawn here, where the HDF5 loaders draw a start at every read
+    (robonet_hdf5.py's __getitem__); episodes of cfg.video_length frames
+    read the same on both routes."""
+    paths = [p for p, _ in episodes]
+    ds = RoboNetHDF5Dataset(paths, [viewpoint] * len(paths), cfg,
+                            episodes=[ep for _, ep in episodes])
+    return write_records((ds[i] for i in range(len(ds))), record_dir,
+                         cfg.video_length, episodes_per_shard)
 
 
 def collect_mask_data(env_name: str, n_samples: int, out_dir: str,

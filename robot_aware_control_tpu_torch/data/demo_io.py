@@ -9,7 +9,8 @@ it is missing they raise ImportError naming it.
 `demo_from_history` builds the runner's demo dict from a scripted demo of
 an env (envs/*.generate_demo) in memory: on a machine without h5py, the
 episode runner follows such dicts (control/episode_runner.py).
-`collect_demos` writes them as HDF5 files.
+`collect_demos` writes them as HDF5 files; `make_demo` makes one as
+`collect_demos` saves it.
 """
 
 from __future__ import annotations
@@ -19,6 +20,18 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+
+
+def has_h5py() -> bool:
+    """Whether h5py is installed. A failure to import anything else, h5py's
+    own dependencies included, raises."""
+    try:
+        import h5py  # noqa: F401
+    except ModuleNotFoundError as e:
+        if e.name != "h5py":
+            raise
+        return False
+    return True
 
 
 def require_h5py():
@@ -119,14 +132,18 @@ def collect_demos(env, behavior: str, n: int, out_dir: str,
     require_h5py()  # before any episode runs
     paths = []
     for i in range(n):
-        history = env.generate_demo(behavior)
-        demo = demo_from_history(env, history)
-        if render_object_only:
-            imgs = object_only_images(env, demo)
-            if imgs is not None:
-                demo["object_only_demo"] = imgs
-                demo["object_inpaint_demo"] = imgs
         path = os.path.join(out_dir, f"demo_{behavior}_{i}.hdf5")
-        save_demo(path, demo)
+        save_demo(path, make_demo(env, behavior, render_object_only))
         paths.append(path)
     return paths
+
+
+def make_demo(env, behavior: str, render_object_only: bool = True) -> Dict:
+    """One scripted demo in memory, as `collect_demos` saves it."""
+    demo = demo_from_history(env, env.generate_demo(behavior))
+    if render_object_only:
+        imgs = object_only_images(env, demo)
+        if imgs is not None:
+            demo["object_only_demo"] = imgs
+            demo["object_inpaint_demo"] = imgs
+    return demo

@@ -345,6 +345,8 @@ def _scan_view_dirs(config: Config, robot: str, views_dir: str, dirs):
 
 
 def _seeded_shuffle(pairs, seed: int):
+    """(path, robot_viewpoint) pairs sorted by path, then shuffled by a
+    RandomState of `seed`."""
     pairs = sorted(pairs, key=lambda x: x[0])
     idx = np.arange(len(pairs))
     np.random.RandomState(seed).shuffle(idx)
@@ -366,16 +368,19 @@ def _movement_filter(config: Config, pairs):
     return [p for p in pairs if meta.get(p[0], False)]
 
 
-def _head_split_loaders(config: Config, pairs, n_test: int, n_train: int):
+def head_split(pairs, n_test: int, n_train: int):
     """Reference's head-split convention: first n_test files test, next
     n_train train (locobot_singleview_dataloader.py:108-121). n_test clamps
-    on tiny trees so the train side is never empty."""
-    if not pairs:
-        raise FileNotFoundError(f"no hdf5 under {config.data_root}")
+    on tiny trees so the train side is never empty. Returns (train, test)."""
     if n_test >= len(pairs):
         n_test = max(1, len(pairs) // 5)
-    test = pairs[:n_test]
-    train = pairs[n_test:n_test + n_train]
+    return pairs[n_test:n_test + n_train], pairs[:n_test]
+
+
+def _head_split_loaders(config: Config, pairs, n_test: int, n_train: int):
+    if not pairs:
+        raise FileNotFoundError(f"no hdf5 under {config.data_root}")
+    train, test = head_split(pairs, n_test, n_train)
     train, test = _host_shard(train), _host_shard(test)
     return (
         _mk_loader(config, train, config.seed, _host_batch(config.batch_size)),
@@ -494,14 +499,20 @@ def _locobot_pairs(config: Config, views_dir: str, folders):
             if "locobot" in vp]
 
 
+# (n_test, n_train) of the head-split locobot experiments, shared with the
+# record route (data/records.py:create_record_loaders)
+HEAD_SPLITS = {"train_locobot_singleview": (200, 3000),
+               "train_locobot_table": (1000, 10000),
+               "train_locobot_pick": (500, 100000)}
+
+
 def create_locobot_loaders(config: Config):
     """Locobot singleview training over c0..c3 (reference:
     locobot_singleview_dataloader.py:95-146; first 200 test, next 3000
     train)."""
     pairs = _locobot_pairs(config, "locobot_views", LOCOBOT_FOLDERS)
-    return _head_split_loaders(
-        config, _seeded_shuffle(pairs, config.seed), n_test=200, n_train=3000
-    )
+    return _head_split_loaders(config, _seeded_shuffle(pairs, config.seed),
+                               *HEAD_SPLITS["train_locobot_singleview"])
 
 
 def create_locobot_finetune_loaders(config: Config):
@@ -526,19 +537,16 @@ def create_locobot_table_loaders(config: Config):
     """(reference: locobot_table_dataloaders.py:95-143; table task data
     under locobot_table_views/c0, first 1000 test, next 10000 train)."""
     pairs = _locobot_pairs(config, "locobot_table_views", ["c0"])
-    return _head_split_loaders(
-        config, _seeded_shuffle(pairs, config.seed), n_test=1000, n_train=10000
-    )
+    return _head_split_loaders(config, _seeded_shuffle(pairs, config.seed),
+                               *HEAD_SPLITS["train_locobot_table"])
 
 
 def create_locobot_pick_loaders(config: Config):
     """(reference: locobot_pick_dataloaders.py:11-58; pick task data under
     locobot_pick_views/c0, first 500 test, rest train)."""
     pairs = _locobot_pairs(config, "locobot_pick_views", ["c0"])
-    return _head_split_loaders(
-        config, _seeded_shuffle(pairs, config.seed), n_test=500,
-        n_train=100000,
-    )
+    return _head_split_loaders(config, _seeded_shuffle(pairs, config.seed),
+                               *HEAD_SPLITS["train_locobot_pick"])
 
 
 def create_movement_loaders(config: Config):

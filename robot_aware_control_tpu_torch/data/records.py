@@ -7,7 +7,9 @@ autograsp: the HDF5 reader's semantics), and many episodes are packed into
 compressed `shard_<i>.npz` files, each with a `.json` list of its episodes'
 robot, folder and file path. Reading them needs numpy alone, so this is the
 data route on a machine without h5py; shards written by either package
-read in the other.
+read in the other. `create_record_loaders` splits a shard tree's episodes
+as the HDF5 loaders of the head-split locobot experiments split their
+files (data/loader.py), by the file paths the shards carry.
 """
 
 from __future__ import annotations
@@ -122,6 +124,12 @@ class RecordDataset:
                     self._cached_bytes -= _nbytes(old)
             return shard
 
+    def meta(self, idx: int) -> dict:
+        """The robot, folder and file path of episode `idx`, read from the
+        shard's list (no shard decoded)."""
+        si, ei = self._index[idx]
+        return self._meta[si][ei]
+
     def __getitem__(self, idx: int) -> dict:
         si, ei = self._index[idx]
         shard = self._shard(si)
@@ -133,3 +141,49 @@ class RecordDataset:
 
 def _nbytes(shard: Dict[str, np.ndarray]) -> int:
     return sum(v.nbytes for v in shard.values())
+
+
+class RecordSubset:
+    """The episodes `indices` of a RecordDataset (its shard cache shared),
+    renumbered from 0."""
+
+    def __init__(self, dataset: RecordDataset, indices: List[int]):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, idx: int) -> dict:
+        return dict(self.dataset[self.indices[idx]], idx=idx)
+
+    @property
+    def file_paths(self) -> List[str]:
+        return [self.dataset.meta(i)["file_path"] for i in self.indices]
+
+
+def create_record_loaders(config: Config, record_dir: str):
+    """Train and test loaders over the shards under `record_dir` with the
+    split of config.experiment's HDF5 loaders (data/loader.py): episodes
+    sorted by file path and shuffled by config.seed, then the head split
+    and its clamp (`head_split`), and the batch sizes, seeds and loader
+    options of `_mk_loader`. So the two routes put the same episodes into
+    train and test. The head-split locobot experiments only."""
+    from robot_aware_control_tpu_torch.data import loader as L
+
+    if config.experiment not in L.HEAD_SPLITS:
+        raise ValueError(
+            f"record shards split only the head-split experiments "
+            f"{sorted(L.HEAD_SPLITS)}, not {config.experiment!r}")
+    ds = RecordDataset(record_dir)
+    pairs = L._seeded_shuffle(
+        [(ds.meta(i)["file_path"], i) for i in range(len(ds))], config.seed)
+    train, test = L.head_split(pairs, *L.HEAD_SPLITS[config.experiment])
+
+    def mk(part, seed, bs):
+        sub = RecordSubset(ds, [i for _, i in part])
+        return L.DataLoader(sub, min(bs, max(len(sub), 1)),
+                            num_workers=config.data_threads, seed=seed)
+
+    return (mk(train, config.seed, config.batch_size),
+            mk(test, config.seed + 1, config.test_batch_size))

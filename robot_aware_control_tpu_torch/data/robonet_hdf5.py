@@ -22,14 +22,16 @@ imports, else through the C++ resize of `data/native.py`; without either
 they raise (the JAX reader would sample the nearest pixels instead, which
 is another image). h5py is imported by the functions that open a file, so
 that the loaders import on a machine without it (record shards,
-`data/records.py`, need numpy alone). Files in the public RoboNet raw
-layout raise NotImplementedError.
+`data/records.py`, need numpy alone). The dataset also reads episodes
+held in memory in the file's layout (`episodes=`, made by
+`episode_arrays`): data/collect.py's route to record shards on such a
+machine. Files in the public RoboNet raw layout raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -76,8 +78,19 @@ class RoboNetHDF5Dataset:
         config: Config,
         load_snippet: bool = False,
         seed: Optional[int] = None,
+        episodes: Optional[Sequence[Mapping]] = None,
     ):
+        """`episodes`, where given, holds each file's episode in memory (the
+        mapping `episode_arrays` makes: what `write_trajectory_hdf5` would
+        have stored there), read in place of the file, which need not
+        exist. This is an input seam for a machine without h5py
+        (data/collect.py writes record shards through it), not a feature:
+        both routes read the same keys and preprocess them alike."""
         self._traj_names = list(hdf5_list)
+        self._episodes = None if episodes is None else list(episodes)
+        if self._episodes is not None and len(self._episodes) != len(self._traj_names):
+            raise ValueError(f"{len(self._episodes)} episodes for "
+                             f"{len(self._traj_names)} files")
         self._traj_robots = list(robot_list)
         self._config = config
         self._video_length = (
@@ -102,46 +115,53 @@ class RoboNetHDF5Dataset:
         return len(self._traj_names)
 
     def _load_file(self, idx: int) -> dict:
-        """Decode one full episode (used directly or RAM-preloaded)."""
-        import h5py
-
+        """Decode one full episode (used directly or RAM-preloaded): from
+        the file, or from its episode in memory."""
         cfg = self._config
         name = self._traj_names[idx]
-        robot_viewpoint = self._traj_robots[idx]
+        if self._episodes is not None:
+            return self._decode(self._episodes[idx], name, self._traj_robots[idx])
+        import h5py
+
         path = (
             name
             if os.path.isabs(name) or os.path.exists(name)
             else os.path.join(cfg.data_root, name)
         )
         with h5py.File(path, "r") as hf:
-            if "env" in hf and "policy" in hf:
-                raise NotImplementedError(
-                    f"{path}: a public-RoboNet raw file; its reader "
-                    "(data/raw_robonet.py, ROADMAP section 1 item 9) is not "
-                    "ported yet")
-            image_key = "observations" if "observations" in hf else "frames"
-            mask_key = "masks" if "masks" in hf else "mask"
-            ep_len = hf[image_key].shape[0]
-            if ep_len < self._video_length:
-                raise ValueError(f"{path}: episode {ep_len} < {self._video_length}")
-            raw_low, raw_high = self._load_bounds(hf, robot_viewpoint)
-            out = {
-                "path": path,
-                "ep_len": ep_len,
-                "images": np.asarray(hf[image_key]),
-                "states": self._load_states(hf, 0, ep_len),
-                "actions": self._load_actions(hf, raw_low, raw_high, 0, ep_len - 1),
-                "masks": np.asarray(hf[mask_key], np.float32),
-                "qpos": self._load_qpos(hf, 0, ep_len),
-                "raw_low": raw_low,
-                "raw_high": raw_high,
-            }
-            robot = hf.attrs.get("robot")
-            if robot is None:
-                robot = "locobot" if "locobot" in robot_viewpoint else (
-                    "franka" if "franka" in robot_viewpoint else "unknown"
-                )
-            out["robot"] = robot.decode() if isinstance(robot, bytes) else robot
+            return self._decode(hf, path, self._traj_robots[idx])
+
+    def _decode(self, hf, path: str, robot_viewpoint: str) -> dict:
+        """One episode's arrays from an h5py file or from a mapping of the
+        same keys (its attribute `robot` a key of the mapping)."""
+        if "env" in hf and "policy" in hf:
+            raise NotImplementedError(
+                f"{path}: a public-RoboNet raw file; its reader "
+                "(data/raw_robonet.py, ROADMAP section 1 item 9) is not "
+                "ported yet")
+        image_key = "observations" if "observations" in hf else "frames"
+        mask_key = "masks" if "masks" in hf else "mask"
+        ep_len = hf[image_key].shape[0]
+        if ep_len < self._video_length:
+            raise ValueError(f"{path}: episode {ep_len} < {self._video_length}")
+        raw_low, raw_high = self._load_bounds(hf, robot_viewpoint)
+        out = {
+            "path": path,
+            "ep_len": ep_len,
+            "images": np.asarray(hf[image_key]),
+            "states": self._load_states(hf, 0, ep_len),
+            "actions": self._load_actions(hf, raw_low, raw_high, 0, ep_len - 1),
+            "masks": np.asarray(hf[mask_key], np.float32),
+            "qpos": self._load_qpos(hf, 0, ep_len),
+            "raw_low": raw_low,
+            "raw_high": raw_high,
+        }
+        robot = getattr(hf, "attrs", hf).get("robot")
+        if robot is None:
+            robot = "locobot" if "locobot" in robot_viewpoint else (
+                "franka" if "franka" in robot_viewpoint else "unknown"
+            )
+        out["robot"] = robot.decode() if isinstance(robot, bytes) else robot
         return out
 
     def __getitem__(self, idx: int) -> dict:
@@ -359,6 +379,25 @@ class RoboNetHDF5Dataset:
         return out.astype(np.float32)
 
 
+def episode_arrays(images, states, actions, masks, qpos,
+                   robot: str = "locobot", low=None, high=None) -> dict:
+    """An episode as `write_trajectory_hdf5` stores it: the datasets of the
+    file, cast as the file holds them, and its `robot` attribute as a key.
+    `RoboNetHDF5Dataset(..., episodes=)` reads such mappings."""
+    out = {
+        "observations": np.asarray(images),
+        "states": np.asarray(states, np.float32),
+        "actions": np.asarray(actions, np.float32),
+        "masks": np.asarray(masks),
+        "qpos": np.asarray(qpos, np.float32),
+    }
+    if low is not None:
+        out["low_bound"] = np.asarray(low, np.float32)
+        out["high_bound"] = np.asarray(high, np.float32)
+    out["robot"] = robot
+    return out
+
+
 def write_trajectory_hdf5(path: str, images, states, actions, masks, qpos,
                           robot: str = "locobot", low=None, high=None):
     """Write an episode in the layout the reader (and the reference's data
@@ -367,13 +406,11 @@ def write_trajectory_hdf5(path: str, images, states, actions, masks, qpos,
     import h5py
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    episode = episode_arrays(images, states, actions, masks, qpos, robot,
+                             low, high)
     with h5py.File(path, "w") as hf:
-        hf.create_dataset("observations", data=np.asarray(images))
-        hf.create_dataset("states", data=np.asarray(states, np.float32))
-        hf.create_dataset("actions", data=np.asarray(actions, np.float32))
-        hf.create_dataset("masks", data=np.asarray(masks))
-        hf.create_dataset("qpos", data=np.asarray(qpos, np.float32))
-        if low is not None:
-            hf.create_dataset("low_bound", data=np.asarray(low, np.float32))
-            hf.create_dataset("high_bound", data=np.asarray(high, np.float32))
-        hf.attrs["robot"] = robot
+        for k, v in episode.items():
+            if k == "robot":
+                hf.attrs["robot"] = v
+            else:
+                hf.create_dataset(k, data=v)

@@ -10,11 +10,12 @@ pickled as `obj_movement.pkl`, feed `--world_error_dict`,
 robonet_dataset.py:36-48, trainer.py:426-429).
 
     python -m robot_aware_control_tpu_torch.evaluation.obj_movement \\
-        --data_root <tree> [--flags of config.py]
+        --data_root <tree> [--dynamics_model_ckpt ckpt_N.npz] \\
+        [--device cpu] [--flags of config.py]
 
-labels every HDF5 video under data_root. Evaluating a checkpoint on the
-high-movement videos waits for `evaluation/evaluate_checkpoint` (ROADMAP
-section 1 item 9) and raises until then.
+labels every HDF5 video under data_root; with --dynamics_model_ckpt it
+evaluates that checkpoint on the high-movement videos instead, on
+--device (the GPU unless --device cpu).
 """
 
 from __future__ import annotations
@@ -76,28 +77,44 @@ def load_movement_metadata(path: str) -> Dict[str, bool]:
         return pickle.load(f)
 
 
-def evaluate_on_movement_set(cfg, ckpt_path: str):
+def evaluate_on_movement_set(cfg, ckpt_path: str, device="cuda"):
     """A checkpoint's eval metrics on the high-movement videos (reference:
-    evaluation/evaluate_obj_movement.py:13-25)."""
-    raise NotImplementedError(
-        "evaluating a checkpoint on the high-movement videos needs "
-        "evaluation/evaluate_checkpoint (ROADMAP section 1 item 9), which is "
-        "not ported yet")
+    evaluation/evaluate_obj_movement.py:13-25): the epoch metrics over the
+    test side of create_movement_loaders."""
+    from robot_aware_control_tpu_torch.data.loader import create_movement_loaders
+    from robot_aware_control_tpu_torch.evaluation.evaluate_checkpoint import (
+        evaluate_checkpoint,
+    )
+
+    _, test_loader = create_movement_loaders(cfg)
+    return evaluate_checkpoint(cfg, ckpt_path, loader=test_loader,
+                               device=device)
 
 
 def main(argv=None):
     """Labels every video under data_root and writes
     <data_root>/obj_movement.pkl (reference: measure_obj_movement.py
-    __main__); with --dynamics_model_ckpt, evaluate_on_movement_set."""
+    __main__); with --dynamics_model_ckpt, evaluate_on_movement_set on
+    --device."""
+    import argparse
+    import json
+
     from robot_aware_control_tpu_torch.config import argparser
     from robot_aware_control_tpu_torch.data.loader import discover_hdf5
     from robot_aware_control_tpu_torch.data.robonet_hdf5 import RoboNetHDF5Dataset
 
-    cfg, unparsed = argparser(argv)
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda",
+                     help="cuda (default) or cpu; there is no fallback")
+    args, rest = pre.parse_known_args(argv)
+    cfg, unparsed = argparser(rest)
     if unparsed:
         raise ValueError(f"unknown flags: {unparsed}")
     if cfg.dynamics_model_ckpt:
-        return evaluate_on_movement_set(cfg, cfg.dynamics_model_ckpt)
+        metrics = evaluate_on_movement_set(cfg, cfg.dynamics_model_ckpt,
+                                           args.device)
+        print(json.dumps({k: round(float(v), 5) for k, v in metrics.items()}))
+        return metrics
     pairs = discover_hdf5(cfg.data_root)
     ds = RoboNetHDF5Dataset([p for p, _ in pairs], [r for _, r in pairs], cfg)
     key = pairs[0][1] if pairs else "default"

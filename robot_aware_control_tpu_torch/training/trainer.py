@@ -68,6 +68,7 @@ from robot_aware_control_tpu_torch.config import Config, argparser
 from robot_aware_control_tpu_torch.data import loader as data_loader
 from robot_aware_control_tpu_torch.data.loader import device_batch, device_prefetch
 from robot_aware_control_tpu_torch.data.heatmaps import create_heatmaps
+from robot_aware_control_tpu_torch.data.records import create_record_loaders
 from robot_aware_control_tpu_torch.data.synthetic import SyntheticDataset
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.models.robot_mlp import (
@@ -94,7 +95,14 @@ _WINDOW_KEYS = ("images", "masks", "states", "qpos", "heatmaps")
 
 
 class PredictionTrainer:
-    def __init__(self, cfg: Config, device="cuda"):
+    """`record_dir`, where given, holds record shards of the experiment's
+    episodes (data/collect.py:write_training_records), read in place of the
+    HDF5 files under --data_root with the same split
+    (data/records.py:create_record_loaders): the input seam of a machine
+    without h5py, not a feature."""
+
+    def __init__(self, cfg: Config, device="cuda",
+                 record_dir: Optional[str] = None):
         family = get_model(cfg)
         if cfg.sharded_checkpoint:
             raise NotImplementedError(
@@ -108,6 +116,7 @@ class PredictionTrainer:
         self._video_rng = np.random.RandomState(cfg.seed)
         self._generator = torch.Generator(self.device).manual_seed(cfg.seed)
         self.transfer_loader = None
+        self.record_dir = record_dir
         # the last epoch's seconds and the seconds it waited for batches
         self.last_epoch = None
         # the finetune experiments' robot model (trainer.py:127-139): the
@@ -168,6 +177,8 @@ class PredictionTrainer:
             test = SyntheticDataset(cfg, cfg.test_batch_size,
                                     seed=cfg.seed + 1, num_batches=2)
             return train, test
+        if self.record_dir is not None:
+            return create_record_loaders(cfg, self.record_dir)
         exp = cfg.experiment
         if exp == "train_robonet":
             # zero-shot transfer measured on locobot, a robot absent from

@@ -369,11 +369,19 @@ def test_learned_episode_matches_jax(tmp_path, small_svg, fake_jax_normal):
 
 
 def test_runner_refusals_and_cli(tmp_path):
-    """--cyclegan raises naming ROADMAP item 9.5; --mbrl_algo other than
-    cem raises; main() on --device cpu runs the demos of --demo_dir."""
-    cfg = Config(**RUN_KW, log_dir=str(tmp_path), cyclegan=True)
-    with pytest.raises(NotImplementedError, match="item 9.5"):
-        trunner.PushEpisodeRunner(cfg, device="cpu")
+    """--cyclegan builds the CycleGAN translator (baselines/cyclegan.py);
+    --mbrl_algo other than cem raises; main() on --device cpu runs the
+    demos of --demo_dir."""
+    from robot_aware_control_tpu_torch.baselines.cyclegan import CycleGANTranslator
+
+    cfg = Config(**RUN_KW, log_dir=str(tmp_path), cyclegan=True,
+                 use_env_dynamics=True)
+    runner = trunner.PushEpisodeRunner(cfg, device="cpu")
+    runner.logger.close()
+    assert isinstance(runner.translator, CycleGANTranslator)
+    img = np.random.RandomState(0).rand(48, 64, 3).astype(np.float32)
+    out = runner.translator(img)
+    assert out.shape == img.shape and np.all((out >= 0) & (out <= 1))
     with pytest.raises(ValueError, match="mbrl_algo"):
         trunner.main(["--mbrl_algo", "sac", "--device", "cpu"])
     demos = str(tmp_path / "demos")

@@ -577,8 +577,11 @@ def test_copy_world_error_and_labels_match_jax(tmp_path):
     assert got == want and sum(got.values()) == 2
     assert tmove.load_movement_metadata(str(tmp_path / "j.pkl")) == want
     assert jmove.load_movement_metadata(str(tmp_path / "t.pkl")) == want
-    with pytest.raises(NotImplementedError, match="evaluate_checkpoint"):
-        tmove.main(["--data_root", str(tmp_path), "--dynamics_model_ckpt", "x"])
+    # the checkpoint route (evaluate_on_movement_set) reads the labels of
+    # --world_error_dict, as the JAX one does
+    with pytest.raises(ValueError, match="world_error_dict"):
+        tmove.main(["--data_root", str(tmp_path), "--dynamics_model_ckpt", "x",
+                    "--device", "cpu"])
     meta = tmove.main(["--data_root", str(tmp_path), "--video_length", "12",
                        "--image_height", "48", "--image_width", "64",
                        "--robot_joint_dim", "7", "--action_dim", "5"])

@@ -44,6 +44,17 @@ from torch_data_cases import (
     prefetch_check,
     write_record_split,
 )
+from torch_experiment_cases import (
+    CYCLEGAN_TOL,
+    EMBED_TOL,
+    I3D_TOL,
+    cyclegan_card_vs_cpu,
+    cyclegan_episode,
+    i3d_card_vs_cpu,
+    random_embed_card_vs_cpu,
+    record_route,
+    shards_close,
+)
 from torch_family_cases import (
     FAMILIES,
     family_fields,
@@ -842,3 +853,59 @@ def test_gpu_bridged_plan_equals_converted_plan(cuda):
     as the same weights through convert.py, bit for bit."""
     assert bridge_plan_check(cuda, fields=SMALL_SVG)["equal"]
 
+
+
+# ------------------------------------------------------------ experiments
+@pytest.fixture
+def no_tf32():
+    """Full float32 convolutions and matmuls on the card for the card ==
+    CPU checks; restored after."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_gpu_i3d_matches_cpu(cuda, no_tf32):
+    """The seed-42 I3D's logits of 2 videos of 8 frames at 48x64 on the
+    card within 1e-4 of the CPU's largest |logit|."""
+    r = i3d_card_vs_cpu(cuda)
+    assert r["finite"] and r["shape"] == [2, 400]
+    assert r["rel_err"] <= I3D_TOL, r
+
+
+def test_gpu_random_embedder_matches_cpu(cuda, no_tf32):
+    r = random_embed_card_vs_cpu(cuda)
+    assert r["shape"] == [2, 400] and r["rel_err"] <= EMBED_TOL, r
+
+
+def test_gpu_cyclegan_matches_cpu(cuda, no_tf32):
+    """The runner's default CycleGAN translates as on the CPU (1e-4); one
+    train_step on the card is finite."""
+    r = cyclegan_card_vs_cpu(cuda)
+    assert r["finite"] and r["max_diff"] <= CYCLEGAN_TOL, r
+
+
+def test_gpu_record_route_shards_match_cpu(cuda, tmp_path):
+    """The record route's shards of 4 LocobotPick episodes collected on
+    the card and on the CPU: the same episodes, file paths and split,
+    images and masks equal, states, actions and joints within the envs'
+    1e-5."""
+    root = str(tmp_path / "data_pick")
+    card = record_route(root, cuda, n=4, record_dir=str(tmp_path / "card"))
+    cpu = record_route(root, "cpu", n=4, record_dir=str(tmp_path / "cpu"))
+    assert (card["train"], card["test"]) == (cpu["train"], cpu["test"])
+    r = shards_close(card["record_dir"], cpu["record_dir"], POS_TOL)
+    assert r["ok"], r
+
+
+def test_gpu_cyclegan_push_episode(cuda, tmp_path):
+    """A 2-step PushEpisodeRunner episode with --cyclegan (GT dynamics) on
+    the card, following a demo made in memory: each observation goes
+    through the translator, the stats are finite."""
+    kernels.reset_launches()
+    r = cyclegan_episode(cuda, str(tmp_path))
+    assert r["finite"] and len(r["actions"]) == 2 and r["translated"] == 2, r
+    assert kernels.launches["capsule_mask_render"] > 0
