@@ -266,11 +266,38 @@ Phases, each of which raises on failure:
                 card as on the CPU (1e-4), one train_step on the card, and
                 a 2-step PushEpisodeRunner episode with --cyclegan (GT
                 dynamics) following a demo made by demo_from_history.
+ 17. raw        the public RoboNet raw layout (data/raw_robonet.py, the
+                raw route of data/robonet_hdf5.py; cases in
+                tests/torch_raw_cases.py), h5py hidden if installed:
+                whether cv2 writes and reads an mp4 stream; trajectories
+                built in memory (raw_robonet_tree) at RoboNet's stored
+                240x320, 31 jpg frames each: sawyer sudri0_c0 x 3,
+                sudri0_c1 x 2, sudri2_c1 x 1, locobot_c0 x 2, and one more
+                sudri0_c0 as mp4 where cv2 writes it; decode ms a frame
+                to 64x85 by encoding; the raw route to record shards
+                (write_training_records, masks on the card: the chains for
+                sawyer, the mask kernel at M = 31, 64x85 for locobot) and
+                the converter's trees at locobot_c0, every mask launch held
+                bit for bit to its plain version on its own segments;
+                episodes/s with the time in decode and masks and in the
+                shard's write; mask ms a trajectory by robot;
+                train_sawyer_multiview on the shards at the Config
+                defaults' widths (svg, g_dim 128, 48x64, bf16,
+                dontcare_l1): 2 epochs of 2 batches (the record split of
+                the HDF5 loaders: train, test, the sudri2_c1 transfer
+                view), one eval epoch on test and transfer through sm90
+                (launches counted), utils/profiling.trace around its
+                second step (the chrome trace read back); frames/s of the
+                second epoch; every trajectory read on the card against
+                the CPU (chain masks but within 1e-3 px of an edge); the
+                mask kernel timed at the route's own launch beside its
+                plain version and bound.
 
 Prints the card line, one JSON line each of the train, serve, variants,
-data, robots, families, sim and experiments phases and one of kernels (the mask kernel, the sm90 cell at the planner's
-shapes and at det's, the WMMA kernel and the float32 kernel, each with its
-launches on its own path), then, as the last line,
+data, robots, families, sim, experiments and raw phases and one of kernels
+(the mask kernel, the sm90 cell at the planner's shapes and at det's, the
+WMMA kernel and the float32 kernel, each with its launches on its own path,
+and the mask kernel at the raw route's 64x85), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
@@ -359,6 +386,16 @@ from torch_data_cases import (  # noqa: E402
     eval_cells,
     prefetch_check,
     write_record_split,
+)
+from torch_raw_cases import (  # noqa: E402
+    NATIVE_HW,
+    RAW_LAYOUT,
+    RAW_TRAIN,
+    STORED_HW,
+    MaskLaunches,
+    mp4_probe,
+    raw_card_vs_cpu,
+    raw_trees,
 )
 from torch_chain_cases import (  # noqa: E402
     CHAIN_EXPERIMENTS,
@@ -2506,6 +2543,198 @@ def check_experiments(dev) -> dict:
     return out
 
 
+def check_raw(dev, card: str):
+    """Phase 17 (see the module docstring). Returns its JSON line's dict
+    and the mask kernel's entry of the kernels line at the raw route's
+    64x85 launches."""
+    from robot_aware_control_tpu_torch.data import demo_io
+    from robot_aware_control_tpu_torch.data import raw_robonet as rr
+    from robot_aware_control_tpu_torch.data.collect import write_training_records
+    from robot_aware_control_tpu_torch.data.records import (
+        create_record_loaders,
+        create_record_transfer_loader,
+    )
+    from robot_aware_control_tpu_torch.robot.kinematic_chain import (
+        ChainMaskEnv,
+        _LocobotMaskEnv,
+        get_mask_env,
+    )
+    from robot_aware_control_tpu_torch.utils import profiling
+
+    probe = mp4_probe()
+    out = {"h5py_installed": demo_io.has_h5py(), "cv2": rr._HAS_CV2,
+           "mp4_probe": probe, "card": card}
+    print(f"raw route: h5py installed {out['h5py_installed']} (hidden for "
+          f"this phase), cv2 {out['cv2']}; cv2 mp4 write and read back: "
+          f"{probe}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    hidden = sys.modules.get("h5py", False)
+    sys.modules["h5py"] = None  # the route of a machine without it
+    try:
+        with tempfile.TemporaryDirectory(dir=here) as d:
+            root = os.path.join(d, "data")
+            t = time.perf_counter()
+            trees = raw_trees(root, T=31, hw=STORED_HW, seed=0)
+            if probe["mp4"]:  # one more train-view trajectory, as mp4
+                trees += raw_trees(root, T=31, hw=STORED_HW, seed=1,
+                                   encoding="mp4", prefix="mp4_traj",
+                                   layout=(RAW_LAYOUT[0][:2] + (1,),))
+            out["build_s"] = time.perf_counter() - t
+            # decode: each stream's frames decoded and shrunk to 64x85
+            # (INTER_AREA), as the reader does, by encoding
+            decode = {}
+            for _, _, tree in trees:
+                md = rr.load_metadata_dict(tree)
+                t = time.perf_counter()
+                rr.load_camera_imgs(0, tree, md, NATIVE_HW)
+                e = decode.setdefault(md["img_encoding"], [0.0, 0])
+                e[0] += time.perf_counter() - t
+                e[1] += md["img_T"]
+            out["decode_ms_a_frame"] = {k: v[0] * 1e3 / v[1]
+                                        for k, v in decode.items()}
+            out["frames_decoded"] = {k: v[1] for k, v in decode.items()}
+            # two epochs: the first takes the first steps' set-up and the
+            # traced step, the second's frames/s is read; one eval epoch
+            cfg = Config(**dict(RAW_TRAIN, niter=2, epoch_size=2,
+                                eval_interval=2, checkpoint_interval=2,
+                                data_threads=2, seed=0,
+                                log_dir=os.path.join(d, "log"),
+                                jobname="raw_sawyer_multiview"))
+            rec_dir = os.path.join(d, "records")
+            stamps = {"sawyer": [], "locobot": [], "load": [], "shard": []}
+            patched = ((ChainMaskEnv, "generate_masks", "sawyer"),
+                       (_LocobotMaskEnv, "generate_masks", "locobot"),
+                       (robonet_hdf5.RoboNetHDF5Dataset, "_load_file", "load"),
+                       (np, "savez_compressed", "shard"))
+            origs = [_stamped(owner, name, stamps[key])
+                     for owner, name, key in patched]
+            trace_paths = []
+            kernels.reset_launches()
+            try:
+                with MaskLaunches() as rec:
+                    # the main path: raw trees -> reader (masks on the card)
+                    # -> record shards; the converter at locobot_c0; the
+                    # trainer on the shards
+                    t = time.perf_counter()
+                    shards = write_training_records(
+                        [(p, tree) for p, _, tree in trees], rec_dir, cfg,
+                        viewpoint=[v for _, v, _ in trees], device=dev)
+                    route_s = time.perf_counter() - t
+                    env = get_mask_env("locobot", image_size=NATIVE_HW,
+                                       camera_key="locobot_c0", device=dev)
+                    converted = [rr.converted_tree(
+                        tree, rr.load_metadata_dict(tree), env,
+                        rr.LoaderParams(img_size=NATIVE_HW), 0, "locobot",
+                        os.path.basename(p))
+                        for p, v, tree in trees if v == "locobot_c0"]
+                    route_launches = dict(kernels.launches)
+                    tr = PredictionTrainer(cfg, device=dev, record_dir=rec_dir)
+                    step, calls = tr.train_step, []
+
+                    def traced(*a, **k):
+                        calls.append(1)
+                        if len(calls) != 2:
+                            return step(*a, **k)
+                        with profiling.trace(d) as path:
+                            trace_paths.append(path)
+                            return step(*a, **k)
+
+                    tr.train_step = traced
+                    t = time.perf_counter()
+                    tr.train()
+                    train_s = time.perf_counter() - t
+                    launches = dict(kernels.launches)
+            finally:
+                for (owner, name, _), orig in zip(patched, origs):
+                    setattr(owner, name, orig)
+            # the route's seconds: decode and masks (the reader's _load_file),
+            # the shard's npz write, and the rest (resize, normalization)
+            spent = {k: sum(b - a for a, b in stamps.pop(k))
+                     for k in ("load", "shard")}
+            checked = rec.check()
+            with open(trace_paths[0]) as f:
+                events = json.load(f)["traceEvents"]
+            out["trace"] = dict(exists=True, events=len(events), kernel_events=sum(
+                e.get("cat") == "kernel" for e in events))
+            train, test = create_record_loaders(cfg, rec_dir)
+            transfer = create_record_transfer_loader(cfg, rec_dir)
+            name = lambda ld: [os.path.relpath(p, root)
+                               for p in ld.dataset.file_paths]
+            out.update(
+                trajectories=len(trees), shards=len(shards),
+                route_s=route_s, episodes_per_s=len(trees) / route_s,
+                route_load_s=spent["load"], route_shard_write_s=spent["shard"],
+                route_launches=route_launches, launches=launches,
+                train_s=train_s, train_frames_per_s=_train_fps(tr.log_dir),
+                split=dict(train=name(train), test=name(test),
+                           transfer=name(transfer)),
+                mask_ms_a_trajectory={k: float(np.median(
+                    [(b - a) * 1e3 for a, b in v])) for k, v in stamps.items()},
+                mask_launches_checked=[dict(zip("MShwd", c)) for c in checked],
+                converted=len(converted))
+            if not (launches["capsule_mask_render"] == len(checked) > 0
+                    and launches["conv_lstm_cell_sm90"] > 0
+                    and all(c["mask"][()].any() for c in converted)):
+                raise AssertionError(f"raw route launches {launches}, "
+                                     f"{len(checked)} mask launches checked")
+            with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            if not all(np.isfinite(v) for r in recs for v in r.values()
+                       if isinstance(v, float)):
+                raise AssertionError(f"non-finite raw trainer metrics {recs}")
+            out["transfer_metrics"] = sorted(
+                k for r in recs for k in r if k.startswith("transfer/"))
+            if not out["transfer_metrics"]:
+                raise AssertionError("raw trainer ran no transfer eval")
+            # the chain masks (and everything else) against the CPU
+            out["card_vs_cpu"] = raw_card_vs_cpu(dev, trees, cfg)
+            # the mask kernel at the route's own 64x85 launch (M = 31)
+            segs, h, w = next(r for r in rec.segs)
+            ms = cuda_ms(lambda: kernels.capsule_mask_render(segs, h, w), n=200)
+            plain = cuda_ms(lambda: kernels.capsule_mask_render_plain(segs, h, w))
+            _, ops, _, bound, by = mask_bound(segs, h, w)
+            entry = dict(
+                name="capsule_mask_render_raw", route="cuda", source=MASK_SRC,
+                replaces="robot_aware_control_tpu/ops/pallas_kernels.py:57",
+                launches=launches["capsule_mask_render"], max_abs_err=0.0,
+                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, path="raw route, locobot masks at 64x85",
+                M=int(segs.shape[0]), S=int(segs.shape[1]), h=h, w=w,
+                gops=ops / 1e9)
+            out["mask_kernel"] = entry
+    finally:
+        if hidden is False:
+            del sys.modules["h5py"]
+        else:
+            sys.modules["h5py"] = hidden
+    dec = ", ".join(f"{k} {v:.3f} ms a frame ({out['frames_decoded'][k]} "
+                    f"frames)" for k, v in out["decode_ms_a_frame"].items())
+    masks = ", ".join(f"{k} {v:.3f} ms" for k, v in
+                      out["mask_ms_a_trajectory"].items())
+    print(f"[{card}] raw decode of {STORED_HW[0]}x{STORED_HW[1]} frames to "
+          f"64x85: {dec}")
+    print(f"[{card}] raw masks a 31-frame trajectory (host ms, median): "
+          f"{masks}; mask kernel launches {out['launches']['capsule_mask_render']} "
+          f"(each bit for bit to plain), sm90 cell launches "
+          f"{out['launches']['conv_lstm_cell_sm90']}")
+    print(f"[{card}] raw route: {out['trajectories']} trajectories to "
+          f"{out['shards']} shard(s) in {out['route_s']:.3f} s, "
+          f"{out['episodes_per_s']:.2f} episodes/s (decode and masks "
+          f"{out['route_load_s']:.3f} s, the shard's write "
+          f"{out['route_shard_write_s']:.3f} s, the rest preprocessing); "
+          f"split {out['split']}")
+    print(f"[{card}] raw-fed train_sawyer_multiview: "
+          f"{out['train_frames_per_s']:.1f} frames/s (its second epoch), "
+          f"{out['train_s']:.1f} s for 2 epochs and an eval epoch; trace of "
+          f"a step of the first: "
+          f"{out['trace']['kernel_events']} kernel events")
+    print(f"[{card}] mask kernel at the raw route's M={entry['M']} "
+          f"S={entry['S']} {h}x{w}: {ms:.5f} ms, plain {plain:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}); chain masks card vs CPU "
+          f"{out['card_vs_cpu']}")
+    return out, entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2656,6 +2885,18 @@ def main() -> int:
     print(f"phase experiments took {exp['seconds']:.1f} s; the script "
           f"{exp['script_seconds']:.1f} s so far")
     print(json.dumps({"experiments": dict(exp, card=card)}))
+
+    # the public RoboNet raw layout: decode, masks on the card, shards, the
+    # sawyer multiview trainer
+    t = phase("raw")
+    raw, raw_entry = check_raw(dev, card)
+    raw["seconds"] = time.perf_counter() - t
+    raw["script_seconds"] = time.perf_counter() - t_start
+    line["kernels"].append(raw_entry)
+    cell_entry["launches_raw_trainer"] = raw["launches"]["conv_lstm_cell_sm90"]
+    print(f"phase raw took {raw['seconds']:.1f} s; the script "
+          f"{raw['script_seconds']:.1f} s so far")
+    print(json.dumps({"raw": raw}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

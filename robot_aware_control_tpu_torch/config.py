@@ -7,8 +7,9 @@ collection and the episode runner),
 with the same names and defaults, so a config written for one package
 means the same thing in the other; and a copy of its argparse front end
 (`create_parser`, `argparser`), so the port's trainer takes the same
-`--flags`. Fields the port cannot honour yet raise `NotImplementedError`
-where they are read.
+`--flags`; and of its YAML helpers (`from_yaml`, `to_yaml`), whose files
+read in either package. Fields the port cannot honour yet raise
+`NotImplementedError` where they are read.
 """
 
 from __future__ import annotations
@@ -307,3 +308,59 @@ def argparser(argv=None) -> Tuple[Config, list]:
     """Parse CLI args into a Config; returns (cfg, unparsed flags)."""
     args, unparsed = create_parser().parse_known_args(argv)
     return Config(**vars(args)), unparsed
+
+
+# The JAX Config's fields that the port does not carry, at their JAX
+# defaults: a YAML file written by the JAX package's `to_yaml` loads here
+# while they hold these values. wandb logging and the device mesh fields
+# are not ported (ROADMAP.md, section 1 item 7 for the mesh); `gpu` the
+# JAX package itself accepts and ignores.
+JAX_ONLY_DEFAULTS = {
+    "wandb": False,
+    "wandb_entity": "pal",
+    "wandb_project": "roboaware",
+    "wandb_group": None,
+    "wandb_job_type": None,
+    "gpu": None,
+    "num_devices": 0,
+    "mesh_axes": ["data"],
+    "model_axis_size": 1,
+    "param_sharding": "replicated",
+}
+
+
+def from_yaml(path: str, **overrides) -> Config:
+    """A Config from a YAML mapping (JAX `config.from_yaml`; reference: the
+    vendored robonet YAML configs, robonet/robonet/yaml_util.py); keyword
+    arguments override the file's values. Unknown keys raise KeyError; a
+    JAX-only field (JAX_ONLY_DEFAULTS) away from its default raises
+    NotImplementedError."""
+    import yaml
+
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    fields = {f.name for f in dataclasses.fields(Config)}
+    unknown = set(data) - fields - set(JAX_ONLY_DEFAULTS)
+    if unknown:
+        raise KeyError(f"unknown config keys in {path}: {sorted(unknown)}")
+    for k, default in JAX_ONLY_DEFAULTS.items():
+        if k in data and data.pop(k) != default:
+            raise NotImplementedError(
+                f"{path}: {k} is a JAX package field the port does not "
+                f"carry; it must keep its default {default!r}")
+    data.update(overrides)
+    if "camera_ids" in data:
+        data["camera_ids"] = tuple(data["camera_ids"])
+    return Config(**data)
+
+
+def to_yaml(cfg: Config, path: str):
+    """Writes a Config as YAML (round-trips with from_yaml, and reads in
+    the JAX package's from_yaml)."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(
+            {k: (list(v) if isinstance(v, tuple) else v)
+             for k, v in dataclasses.asdict(cfg).items()},
+            f, sort_keys=True)

@@ -11,7 +11,9 @@ dataloader reads back (data/robonet_hdf5.py). The envs run on `device`
 where it is missing they raise ImportError naming it before any episode
 runs. Without h5py, `training_episodes` and `write_training_records` take
 the same episodes to record shards (data/records.py), which the trainer
-reads with the experiment's split (`PredictionTrainer(record_dir=)`).
+reads with the experiment's split (`PredictionTrainer(record_dir=)`);
+`write_training_records` takes public RoboNet raw trajectories held in
+memory as well (data/raw_robonet.py: `raw_robonet_tree`).
 
     python -m robot_aware_control_tpu_torch.data.collect --env LocobotPush \
         --collect_target demos --demo_dir <dir> --num_episodes 4 [--device cpu]
@@ -21,15 +23,14 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from robot_aware_control_tpu_torch.config import Config, argparser
 from robot_aware_control_tpu_torch.data.demo_io import require_h5py
-from robot_aware_control_tpu_torch.data.records import write_records
+from robot_aware_control_tpu_torch.data.records import convert_to_records
 from robot_aware_control_tpu_torch.data.robonet_hdf5 import (
-    RoboNetHDF5Dataset,
     episode_arrays,
     write_trajectory_hdf5,
 )
@@ -94,26 +95,31 @@ def collect_training_data(env_name: str, n_episodes: int, out_dir: str,
 
 def write_training_records(episodes: Sequence[Tuple[str, dict]],
                            record_dir: str, cfg: Config,
-                           viewpoint: str = "locobot_c0",
-                           episodes_per_shard: int = 64) -> List[str]:
-    """Record shards (data/records.py) of episodes in memory
-    (`training_episodes`), preprocessed by the HDF5 reader under `cfg` (its
-    RandomState seeded with cfg.seed) and cut to
-    cfg.video_length frames, each under the file path the HDF5 route
-    would have written: the shards `convert_to_records` makes of those
-    files, bit for bit. Returns the shard paths.
+                           viewpoint: Union[str, Sequence[str]] = "locobot_c0",
+                           episodes_per_shard: int = 64,
+                           device="cuda") -> List[str]:
+    """Record shards (data/records.py) of episodes in memory, preprocessed
+    by the HDF5 reader under `cfg` (its RandomState seeded with cfg.seed)
+    and cut to cfg.video_length frames, each under the file path the HDF5
+    route would have written: the shards `convert_to_records` makes of
+    those files, bit for bit. An episode is a mapping of the preprocessed
+    layout (`training_episodes`) or a raw public-RoboNet tree
+    (raw_robonet.raw_robonet_tree), whose masks render on `device`;
+    `viewpoint` is one for all or one an episode. Returns the shard paths.
 
-    This is the collection-to-training route of a machine without h5py, a
-    seam and not a feature. Like `convert_to_records`, it freezes one
-    window an episode: an episode longer than cfg.video_length gets one
-    start drawn here, where the HDF5 loaders draw a start at every read
+    This is the route to training of a machine without h5py, a seam and
+    not a feature. Like `convert_to_records`, it freezes one window an
+    episode: an episode longer than cfg.video_length gets one start drawn
+    here, where the HDF5 loaders draw a start at every read
     (robonet_hdf5.py's __getitem__); episodes of cfg.video_length frames
     read the same on both routes."""
     paths = [p for p, _ in episodes]
-    ds = RoboNetHDF5Dataset(paths, [viewpoint] * len(paths), cfg,
-                            episodes=[ep for _, ep in episodes])
-    return write_records((ds[i] for i in range(len(ds))), record_dir,
-                         cfg.video_length, episodes_per_shard)
+    views = ([viewpoint] * len(paths) if isinstance(viewpoint, str)
+             else list(viewpoint))
+    return convert_to_records(cfg, paths, views, record_dir,
+                              episodes_per_shard,
+                              episodes=[ep for _, ep in episodes],
+                              device=device)
 
 
 def collect_mask_data(env_name: str, n_samples: int, out_dir: str,

@@ -266,19 +266,19 @@ def _host_batch(bs: int) -> int:
 
 
 def _mk_loader(config: Config, pairs, seed: int, bs: int, shuffle=True,
-               drop_last=True):
+               drop_last=True, device="cuda"):
     from robot_aware_control_tpu_torch.data.robonet_hdf5 import RoboNetHDF5Dataset
 
     ds = RoboNetHDF5Dataset(
-        [p for p, _ in pairs], [r for _, r in pairs], config, seed=seed
-    )
+        [p for p, _ in pairs], [r for _, r in pairs], config, seed=seed,
+        device=device)
     # never let a small split produce zero batches (drop_last)
     return DataLoader(ds, min(bs, max(len(ds), 1)),
                       num_workers=config.data_threads, seed=seed,
                       shuffle=shuffle, drop_last=drop_last)
 
 
-def _split_loaders(config: Config, pairs):
+def _split_loaders(config: Config, pairs, device="cuda"):
     """Shuffled train/test split + loaders (the create_loaders shape shared
     by robonet/sawyer factories)."""
     if not pairs:
@@ -286,19 +286,20 @@ def _split_loaders(config: Config, pairs):
     train, test = train_test_split(pairs, config.train_val_split, config.seed)
     train, test = _host_shard(train), _host_shard(test)
     return (
-        _mk_loader(config, train, config.seed, _host_batch(config.batch_size)),
+        _mk_loader(config, train, config.seed, _host_batch(config.batch_size),
+                   device=device),
         _mk_loader(config, test, config.seed + 1,
-                   _host_batch(config.test_batch_size)),
+                   _host_batch(config.test_batch_size), device=device),
     )
 
 
-def create_loaders(config: Config):
+def create_loaders(config: Config, device="cuda"):
     """Train/test loaders over every HDF5 under data_root (reference:
     robonet_dataloaders.py:21-80)."""
-    return _split_loaders(config, discover_hdf5(config.data_root))
+    return _split_loaders(config, discover_hdf5(config.data_root), device=device)
 
 
-def create_transfer_loader(config: Config):
+def create_transfer_loader(config: Config, device="cuda"):
     """Held-out files disjoint from create_loaders' training split: the
     first finetune_num_test of its test side (reference pattern:
     locobot_singleview_dataloader.py:97-147 loads an unseen-robot
@@ -310,7 +311,7 @@ def create_transfer_loader(config: Config):
         raise FileNotFoundError(f"no held-out hdf5 under {config.data_root}")
     return _mk_loader(config, held, config.seed + 2,
                       min(config.test_batch_size, len(held)), shuffle=False,
-                      drop_last=False)
+                      drop_last=False, device=device)
 
 
 # --- per-robot viewpoint directories (the de-facto dataset layout API) -----
@@ -377,19 +378,21 @@ def head_split(pairs, n_test: int, n_train: int):
     return pairs[n_test:n_test + n_train], pairs[:n_test]
 
 
-def _head_split_loaders(config: Config, pairs, n_test: int, n_train: int):
+def _head_split_loaders(config: Config, pairs, n_test: int, n_train: int,
+                        device="cuda"):
     if not pairs:
         raise FileNotFoundError(f"no hdf5 under {config.data_root}")
     train, test = head_split(pairs, n_test, n_train)
     train, test = _host_shard(train), _host_shard(test)
     return (
-        _mk_loader(config, train, config.seed, _host_batch(config.batch_size)),
+        _mk_loader(config, train, config.seed, _host_batch(config.batch_size),
+                   device=device),
         _mk_loader(config, test, config.seed + 1,
-                   _host_batch(config.test_batch_size)),
+                   _host_batch(config.test_batch_size), device=device),
     )
 
 
-def _finetune_split_loaders(config: Config, pairs):
+def _finetune_split_loaders(config: Config, pairs, device="cuda"):
     """Few-shot split: first finetune_num_test files test, next
     finetune_num_train train (reference: sawyer_dataloaders.py:36-45)."""
     if not pairs:
@@ -402,13 +405,14 @@ def _finetune_split_loaders(config: Config, pairs):
     train, test = _host_shard(train), _host_shard(test)
     return (
         _mk_loader(config, train, config.seed, _host_batch(config.batch_size),
-                   drop_last=False),
+                   drop_last=False, device=device),
         _mk_loader(config, test, config.seed + 1,
-                   _host_batch(config.test_batch_size), drop_last=False),
+                   _host_batch(config.test_batch_size), drop_last=False,
+                   device=device),
     )
 
 
-def create_robonet_loaders(config: Config):
+def create_robonet_loaders(config: Config, device="cuda"):
     """Multi-robot RoboNet training mix: baxter left_c0 + widowx widowx1_c0
     + all sawyer views, shuffled then train/test split (reference:
     robonet_dataloaders.py:21-80)."""
@@ -417,17 +421,19 @@ def create_robonet_loaders(config: Config):
         + _scan_view_dirs(config, "widowx", "widowx_views", WIDOWX_TRAIN_DIRS)
         + _scan_view_dirs(config, "sawyer", "sawyer_views", ROBONET_SAWYER_DIRS)
     )
-    return _split_loaders(config, _seeded_shuffle(pairs, config.seed))
+    return _split_loaders(config, _seeded_shuffle(pairs, config.seed),
+                          device=device)
 
 
-def create_sawyer_loaders(config: Config):
+def create_sawyer_loaders(config: Config, device="cuda"):
     """Sawyer multiview training over SAWYER_TRAIN_DIRS, holding the
     sudri2_c1 viewpoint out (reference: sawyer_dataloaders.py:126-197)."""
     pairs = _scan_view_dirs(config, "sawyer", "sawyer_views", SAWYER_TRAIN_DIRS)
-    return _split_loaders(config, _seeded_shuffle(pairs, config.seed))
+    return _split_loaders(config, _seeded_shuffle(pairs, config.seed),
+                          device=device)
 
 
-def create_sawyer_transfer_loader(config: Config):
+def create_sawyer_transfer_loader(config: Config, device="cuda"):
     """Zero-shot eval on the held-out sudri2_c1 sawyer viewpoint, disjoint
     from SAWYER_TRAIN_DIRS (reference: sawyer_dataloaders.py:84-123; first
     500 files, train side of the split)."""
@@ -440,29 +446,32 @@ def create_sawyer_transfer_loader(config: Config):
         raise FileNotFoundError("no sawyer transfer hdf5 found")
     take, _ = train_test_split(pairs, config.train_val_split, config.seed)
     return _mk_loader(config, take or pairs, config.seed + 2,
-                      _host_batch(config.test_batch_size), drop_last=False)
+                      _host_batch(config.test_batch_size), drop_last=False,
+                      device=device)
 
 
-def create_sawyer_finetune_loaders(config: Config):
+def create_sawyer_finetune_loaders(config: Config, device="cuda"):
     """Few-shot finetune on the held-out sawyer viewpoint (reference:
     sawyer_dataloaders.py:19-81, high-error filtered)."""
     pairs = _movement_filter(
         config,
         _scan_view_dirs(config, "sawyer", "sawyer_views", SAWYER_TEST_DIRS),
     )
-    return _finetune_split_loaders(config, _seeded_shuffle(pairs, config.seed))
+    return _finetune_split_loaders(config, _seeded_shuffle(pairs, config.seed),
+                                   device=device)
 
 
-def create_widowx_finetune_loaders(config: Config):
+def create_widowx_finetune_loaders(config: Config, device="cuda"):
     """(reference: widowx_dataloaders.py:10-64)"""
     pairs = _movement_filter(
         config,
         _scan_view_dirs(config, "widowx", "widowx_views", WIDOWX_TRAIN_DIRS),
     )
-    return _finetune_split_loaders(config, _seeded_shuffle(pairs, config.seed))
+    return _finetune_split_loaders(config, _seeded_shuffle(pairs, config.seed),
+                                   device=device)
 
 
-def create_widowx_transfer_loader(config: Config):
+def create_widowx_transfer_loader(config: Config, device="cuda"):
     """(reference: widowx_dataloaders.py:67-103; first 300 files)"""
     pairs = _movement_filter(
         config,
@@ -472,10 +481,11 @@ def create_widowx_transfer_loader(config: Config):
     if not pairs:
         raise FileNotFoundError("no widowx transfer hdf5 found")
     return _mk_loader(config, pairs, config.seed + 2,
-                      _host_batch(config.test_batch_size), drop_last=False)
+                      _host_batch(config.test_batch_size), drop_last=False,
+                      device=device)
 
 
-def create_franka_transfer_loader(config: Config):
+def create_franka_transfer_loader(config: Config, device="cuda"):
     """Zero-shot eval on the lab franka data, a robot never seen in
     training (reference: franka_dataloader.py:12-44: franka_views/c0,
     seeded shuffle, first 400 files, unshuffled loader)."""
@@ -485,7 +495,7 @@ def create_franka_transfer_loader(config: Config):
         raise FileNotFoundError("no franka transfer hdf5 found")
     return _mk_loader(config, pairs, config.seed + 2,
                       _host_batch(config.test_batch_size), shuffle=False,
-                      drop_last=False)
+                      drop_last=False, device=device)
 
 
 def _locobot_pairs(config: Config, views_dir: str, folders):
@@ -506,22 +516,24 @@ HEAD_SPLITS = {"train_locobot_singleview": (200, 3000),
                "train_locobot_pick": (500, 100000)}
 
 
-def create_locobot_loaders(config: Config):
+def create_locobot_loaders(config: Config, device="cuda"):
     """Locobot singleview training over c0..c3 (reference:
     locobot_singleview_dataloader.py:95-146; first 200 test, next 3000
     train)."""
     pairs = _locobot_pairs(config, "locobot_views", LOCOBOT_FOLDERS)
     return _head_split_loaders(config, _seeded_shuffle(pairs, config.seed),
-                               *HEAD_SPLITS["train_locobot_singleview"])
+                               *HEAD_SPLITS["train_locobot_singleview"],
+                               device=device)
 
 
-def create_locobot_finetune_loaders(config: Config):
+def create_locobot_finetune_loaders(config: Config, device="cuda"):
     """(reference: locobot_singleview_dataloader.py:12-60)"""
     pairs = _locobot_pairs(config, "locobot_views", LOCOBOT_FOLDERS)
-    return _finetune_split_loaders(config, _seeded_shuffle(pairs, config.seed))
+    return _finetune_split_loaders(config, _seeded_shuffle(pairs, config.seed),
+                                   device=device)
 
 
-def create_locobot_transfer_loader(config: Config):
+def create_locobot_transfer_loader(config: Config, device="cuda"):
     """Zero-shot eval on unseen locobot data for train_robonet, a robot
     absent from the robonet training mix (reference:
     locobot_singleview_dataloader.py:62-93; first 400 files)."""
@@ -530,26 +542,27 @@ def create_locobot_transfer_loader(config: Config):
     if not pairs:
         raise FileNotFoundError("no locobot transfer hdf5 found")
     return _mk_loader(config, pairs, config.seed + 2,
-                      _host_batch(config.test_batch_size), drop_last=False)
+                      _host_batch(config.test_batch_size), drop_last=False,
+                      device=device)
 
 
-def create_locobot_table_loaders(config: Config):
+def create_locobot_table_loaders(config: Config, device="cuda"):
     """(reference: locobot_table_dataloaders.py:95-143; table task data
     under locobot_table_views/c0, first 1000 test, next 10000 train)."""
     pairs = _locobot_pairs(config, "locobot_table_views", ["c0"])
     return _head_split_loaders(config, _seeded_shuffle(pairs, config.seed),
-                               *HEAD_SPLITS["train_locobot_table"])
+                               *HEAD_SPLITS["train_locobot_table"], device=device)
 
 
-def create_locobot_pick_loaders(config: Config):
+def create_locobot_pick_loaders(config: Config, device="cuda"):
     """(reference: locobot_pick_dataloaders.py:11-58; pick task data under
     locobot_pick_views/c0, first 500 test, rest train)."""
     pairs = _locobot_pairs(config, "locobot_pick_views", ["c0"])
     return _head_split_loaders(config, _seeded_shuffle(pairs, config.seed),
-                               *HEAD_SPLITS["train_locobot_pick"])
+                               *HEAD_SPLITS["train_locobot_pick"], device=device)
 
 
-def create_movement_loaders(config: Config):
+def create_movement_loaders(config: Config, device="cuda"):
     """Loaders restricted to videos labeled high-movement by the copy
     baseline (reference: robonet_dataloaders.py:210-327 and the
     obj_movement.pkl metadata)."""
@@ -563,10 +576,10 @@ def create_movement_loaders(config: Config):
     pairs = [p for p in discover_hdf5(config.data_root) if meta.get(p[0], False)]
     if not pairs:
         raise FileNotFoundError("no high-movement videos found")
-    return _split_loaders(config, pairs)
+    return _split_loaders(config, pairs, device=device)
 
 
-def create_finetune_loaders(config: Config):
+def create_finetune_loaders(config: Config, device="cuda"):
     """Few-shot finetune split: first finetune_num_train files train,
     next finetune_num_test test (reference:
     locobot_singleview_dataloader.py:62-96)."""
@@ -580,9 +593,9 @@ def create_finetune_loaders(config: Config):
     train_pairs, test_pairs = _host_shard(train_pairs), _host_shard(test_pairs)
     return (
         _mk_loader(config, train_pairs, config.seed,
-                   _host_batch(config.batch_size)),
+                   _host_batch(config.batch_size), device=device),
         _mk_loader(config, test_pairs, config.seed + 1,
-                   _host_batch(config.test_batch_size)),
+                   _host_batch(config.test_batch_size), device=device),
     )
 
 

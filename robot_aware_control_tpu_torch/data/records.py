@@ -8,8 +8,10 @@ compressed `shard_<i>.npz` files, each with a `.json` list of its episodes'
 robot, folder and file path. Reading them needs numpy alone, so this is the
 data route on a machine without h5py; shards written by either package
 read in the other. `create_record_loaders` splits a shard tree's episodes
-as the HDF5 loaders of the head-split locobot experiments split their
-files (data/loader.py), by the file paths the shards carry.
+as the HDF5 loaders of the head-split locobot experiments and of
+train_sawyer_multiview split their files (data/loader.py), by the file
+paths the shards carry; `create_record_transfer_loader` takes the latter's
+held-out view.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import json
 import os
 import threading
 from collections import OrderedDict
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -63,12 +65,19 @@ def write_records(items: Iterable[dict], out_dir: str, video_length: int,
 
 def convert_to_records(config: Config, hdf5_files: List[str],
                        robot_viewpoints: List[str], out_dir: str,
-                       episodes_per_shard: int = 64) -> List[str]:
-    """Preprocesses HDF5 trajectories with the reader and packs them into
-    shards; episodes are cut to config.video_length frames."""
+                       episodes_per_shard: int = 64,
+                       episodes: Optional[Sequence] = None,
+                       device="cuda") -> List[str]:
+    """Preprocesses HDF5 trajectories with the reader (its RandomState
+    seeded with config.seed) and packs them into shards; episodes are cut
+    to config.video_length frames. `episodes`, where given, holds each
+    file's content in memory (the reader's `episodes=`: preprocessed
+    episodes or raw-layout trees), and the files need not exist; `device`
+    renders the masks of raw-layout trajectories."""
     from robot_aware_control_tpu_torch.data.robonet_hdf5 import RoboNetHDF5Dataset
 
-    ds = RoboNetHDF5Dataset(hdf5_files, robot_viewpoints, config)
+    ds = RoboNetHDF5Dataset(hdf5_files, robot_viewpoints, config,
+                            episodes=episodes, device=device)
     return write_records((ds[i] for i in range(len(ds))), out_dir,
                          config.video_length, episodes_per_shard)
 
@@ -162,28 +171,81 @@ class RecordSubset:
         return [self.dataset.meta(i)["file_path"] for i in self.indices]
 
 
+def _record_pairs(ds: RecordDataset, views_dir: str, dirs):
+    """(file path, episode index) of the shards' episodes that the HDF5
+    route's `_scan_view_dirs` finds: files in `<views_dir>/<view>/` for a
+    view of `dirs`."""
+    pairs = []
+    for i in range(len(ds)):
+        path = ds.meta(i)["file_path"]
+        view_dir = os.path.dirname(path)
+        if (os.path.basename(view_dir) in dirs
+                and os.path.basename(os.path.dirname(view_dir)) == views_dir):
+            pairs.append((path, i))
+    return pairs
+
+
+def _record_loader(ds: RecordDataset, pairs, seed: int, bs: int,
+                   config: Config, **kw):
+    from robot_aware_control_tpu_torch.data import loader as L
+
+    sub = RecordSubset(ds, [i for _, i in pairs])
+    return L.DataLoader(sub, min(bs, max(len(sub), 1)),
+                        num_workers=config.data_threads, seed=seed, **kw)
+
+
 def create_record_loaders(config: Config, record_dir: str):
     """Train and test loaders over the shards under `record_dir` with the
     split of config.experiment's HDF5 loaders (data/loader.py): episodes
     sorted by file path and shuffled by config.seed, then the head split
-    and its clamp (`head_split`), and the batch sizes, seeds and loader
-    options of `_mk_loader`. So the two routes put the same episodes into
-    train and test. The head-split locobot experiments only."""
+    and its clamp (`head_split`) of the head-split locobot experiments, or
+    the train/test split of train_sawyer_multiview over its train views;
+    and the batch sizes, seeds and loader options of `_mk_loader`. So the
+    two routes put the same episodes into train and test."""
     from robot_aware_control_tpu_torch.data import loader as L
 
-    if config.experiment not in L.HEAD_SPLITS:
+    if (config.experiment != "train_sawyer_multiview"
+            and config.experiment not in L.HEAD_SPLITS):
         raise ValueError(
             f"record shards split only the head-split experiments "
-            f"{sorted(L.HEAD_SPLITS)}, not {config.experiment!r}")
+            f"{sorted(L.HEAD_SPLITS)} and train_sawyer_multiview, not "
+            f"{config.experiment!r}")
     ds = RecordDataset(record_dir)
-    pairs = L._seeded_shuffle(
-        [(ds.meta(i)["file_path"], i) for i in range(len(ds))], config.seed)
-    train, test = L.head_split(pairs, *L.HEAD_SPLITS[config.experiment])
+    if config.experiment == "train_sawyer_multiview":
+        pairs = L._seeded_shuffle(_record_pairs(
+            ds, "sawyer_views", L.SAWYER_TRAIN_DIRS), config.seed)
+        if not pairs:
+            raise FileNotFoundError(f"no sawyer train-view episodes under "
+                                    f"{record_dir}")
+        train, test = L.train_test_split(pairs, config.train_val_split,
+                                         config.seed)
+    else:
+        pairs = L._seeded_shuffle(
+            [(ds.meta(i)["file_path"], i) for i in range(len(ds))], config.seed)
+        train, test = L.head_split(pairs, *L.HEAD_SPLITS[config.experiment])
+    return (_record_loader(ds, train, config.seed, config.batch_size, config),
+            _record_loader(ds, test, config.seed + 1, config.test_batch_size,
+                           config))
 
-    def mk(part, seed, bs):
-        sub = RecordSubset(ds, [i for _, i in part])
-        return L.DataLoader(sub, min(bs, max(len(sub), 1)),
-                            num_workers=config.data_threads, seed=seed)
 
-    return (mk(train, config.seed, config.batch_size),
-            mk(test, config.seed + 1, config.test_batch_size))
+def create_record_transfer_loader(config: Config, record_dir: str):
+    """The transfer loader of config.experiment's HDF5 route over the
+    shards: for train_sawyer_multiview the held-out sudri2_c1 view as
+    `create_sawyer_transfer_loader` takes it (movement filter, seeded
+    shuffle, the first 500, the train side of the split); None for an
+    experiment whose record route has none (the head-split experiments
+    have no transfer loader on either route). FileNotFoundError where the
+    shards hold no such episode."""
+    from robot_aware_control_tpu_torch.data import loader as L
+
+    if config.experiment != "train_sawyer_multiview":
+        return None
+    ds = RecordDataset(record_dir)
+    pairs = L._movement_filter(config, _record_pairs(
+        ds, "sawyer_views", L.SAWYER_TEST_DIRS))
+    pairs = L._seeded_shuffle(pairs, config.seed)[:500]
+    if not pairs:
+        raise FileNotFoundError(f"no sawyer transfer episodes under {record_dir}")
+    take, _ = L.train_test_split(pairs, config.train_val_split, config.seed)
+    return _record_loader(ds, take or pairs, config.seed + 2,
+                          config.test_batch_size, config, drop_last=False)

@@ -25,12 +25,24 @@ that the loaders import on a machine without it (record shards,
 `data/records.py`, need numpy alone). The dataset also reads episodes
 held in memory in the file's layout (`episodes=`, made by
 `episode_arrays`): data/collect.py's route to record shards on such a
-machine. Files in the public RoboNet raw layout raise NotImplementedError.
+machine.
+
+Trajectories in the public RoboNet raw layout (files, or trees in memory
+made by `raw_robonet.raw_robonet_tree`) are decoded by data/raw_robonet.py
+at the reference's preprocessing size, 64x85 (collect_mask_data.py:160,
+174), and their masks rendered on the dataset's `device` (the GPU unless
+the caller asks for the CPU): the measured kinematic chains, or the
+capsule-mask kernel for locobot. A robot with no measured chain gets zero
+masks, as in the JAX package; any other failure of a mask env, its kernel
+build or launch among them, raises.
 """
 
 from __future__ import annotations
 
 import os
+import re
+import threading
+import warnings
 from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -79,14 +91,22 @@ class RoboNetHDF5Dataset:
         load_snippet: bool = False,
         seed: Optional[int] = None,
         episodes: Optional[Sequence[Mapping]] = None,
+        device="cuda",
     ):
         """`episodes`, where given, holds each file's episode in memory (the
         mapping `episode_arrays` makes: what `write_trajectory_hdf5` would
-        have stored there), read in place of the file, which need not
-        exist. This is an input seam for a machine without h5py
-        (data/collect.py writes record shards through it), not a feature:
-        both routes read the same keys and preprocess them alike."""
+        have stored there; or a raw-layout tree, `raw_robonet_tree`), read
+        in place of the file, which need not exist. This is an input seam
+        for a machine without h5py (data/collect.py writes record shards
+        through it), not a feature: both routes read the same keys and
+        preprocess them alike. `device` renders the masks of raw-layout
+        trajectories."""
         self._traj_names = list(hdf5_list)
+        self.device = device
+        # raw layout: one mask env a (robot, camera key), made on first use
+        self._mask_envs: dict = {}
+        self._mask_lock = threading.Lock()
+        self._warned: set = set()
         self._episodes = None if episodes is None else list(episodes)
         if self._episodes is not None and len(self._episodes) != len(self._traj_names):
             raise ValueError(f"{len(self._episodes)} episodes for "
@@ -131,14 +151,19 @@ class RoboNetHDF5Dataset:
         with h5py.File(path, "r") as hf:
             return self._decode(hf, path, self._traj_robots[idx])
 
+    def _warn_once(self, msg: str) -> None:
+        """Each distinct data-path warning once a dataset (raw multiview
+        files can meet the same condition in every file)."""
+        if msg not in self._warned:
+            self._warned.add(msg)
+            warnings.warn(msg)
+
     def _decode(self, hf, path: str, robot_viewpoint: str) -> dict:
         """One episode's arrays from an h5py file or from a mapping of the
-        same keys (its attribute `robot` a key of the mapping)."""
+        same keys (its attribute `robot` a key of the mapping), or from a
+        raw-layout file or tree."""
         if "env" in hf and "policy" in hf:
-            raise NotImplementedError(
-                f"{path}: a public-RoboNet raw file; its reader "
-                "(data/raw_robonet.py, ROADMAP section 1 item 9) is not "
-                "ported yet")
+            return self._load_raw(hf, path, robot_viewpoint)
         image_key = "observations" if "observations" in hf else "frames"
         mask_key = "masks" if "masks" in hf else "mask"
         ep_len = hf[image_key].shape[0]
@@ -163,6 +188,122 @@ class RoboNetHDF5Dataset:
             )
         out["robot"] = robot.decode() if isinstance(robot, bytes) else robot
         return out
+
+    def _load_raw(self, hf, path: str, robot_viewpoint: str) -> dict:
+        """A trajectory in the public RoboNet raw layout (JAX
+        `_load_raw_file`): frames decoded at 64x85, masks rendered from the
+        qpos on the dataset's device, states kept normalized, bounds from
+        the last rows of env/low_bound and env/high_bound."""
+        from robot_aware_control_tpu_torch.data import raw_robonet as rr
+
+        cfg = self._config
+        md = rr.metadata_row(hf, os.path.basename(path))
+        native = (64, 85)
+        # the stream of a `<view>_c<k>` directory is camera k, the one the
+        # view's extrinsics (and so its masks) belong to, else 0; a file
+        # with fewer streams takes its last (robonet_dataloaders.py:137-208)
+        cam = 0
+        vp_cam = re.search(r"_c(\d+)$", robot_viewpoint)
+        if vp_cam is not None:
+            cam = int(vp_cam.group(1))
+        ncam = int(md.get("ncam", 1))
+        cam = min(cam, ncam - 1)
+        # --multiview on a multi-stream file: --camera_ids are stream
+        # indices, one view each; an id out of this file's range takes its
+        # positional stream (with a warning). Views stack vertically, as
+        # the multiview envs lay them out (envs/variants.py).
+        cams = [cam]
+        if cfg.multiview and ncam > 1:
+            cams = []
+            for i, c in enumerate(cfg.camera_ids):
+                if 0 <= c < ncam:
+                    cams.append(int(c))
+                else:
+                    fallback = min(i, ncam - 1)
+                    self._warn_once(
+                        f"camera id {c} out of range for {path} "
+                        f"(ncam={ncam}); using stream {fallback} for "
+                        f"view {i}")
+                    cams.append(fallback)
+        params = rr.LoaderParams(
+            target_adim=cfg.action_dim,
+            target_sdim=int(md["sdim"]),
+            action_mismatch=rr.ACTION_MISMATCH.PAD_ZERO,
+            impute_autograsp_action=cfg.impute_autograsp_action,
+            img_size=native,
+            cams_to_load=cams,
+            load_T=0,
+            check_sha256=False,
+        )
+        images, actions, states, qpos = rr.load_data(hf, md, params)
+        T_, nv, ih, iw, _ = images.shape
+        images = images.reshape(T_, nv * ih, iw, 3)
+        ep_len = images.shape[0]
+        if ep_len < self._video_length:
+            raise ValueError(f"{path}: episode {ep_len} < {self._video_length}")
+        rdim, jdim = cfg.robot_dim, cfg.robot_joint_dim
+        if states.shape[-1] < rdim:
+            states = np.pad(states, [(0, 0), (0, rdim - states.shape[-1])])
+        if qpos.shape[-1] < jdim:
+            qpos = np.pad(qpos, [(0, 0), (0, jdim - qpos.shape[-1])])
+        robot = md.get("robot")
+        if robot is None:
+            robot = robot_viewpoint.split("_")[0]
+        base_key = robot_viewpoint if "_" in robot_viewpoint else None
+        per_view = []
+        for c in cams:
+            key = base_key
+            if base_key is not None and c != cam:
+                # another stream's extrinsics live under its _c<c> key (a
+                # mask of the wrong camera would poison the dontcare loss)
+                if re.search(r"_c\d+$", base_key):
+                    key = re.sub(r"_c\d+$", f"_c{c}", base_key)
+                else:
+                    key = f"{base_key}_c{c}"
+            env = self._raw_mask_env(str(robot), key, native)
+            if env is None:
+                if cfg.multiview:
+                    self._warn_once(
+                        f"no mask calibration for view key {key!r} "
+                        f"(stream {c}) of {path}; that view's masks are "
+                        "zeroed")
+                m = np.zeros((ep_len,) + native + (1,), np.float32)
+            else:
+                m = np.asarray(env.generate_masks(qpos), np.float32)
+                if m.ndim == 3:
+                    m = m[..., None]
+            per_view.append(m)
+        masks = np.concatenate(per_view, axis=1)  # views stacked like images
+        return {
+            "path": path,
+            "ep_len": ep_len,
+            "images": images,
+            "states": states.astype(np.float32),
+            "actions": actions.astype(np.float32),
+            "masks": masks[..., 0] if masks.shape[-1] == 1 else masks,
+            "qpos": qpos.astype(np.float32),
+            "raw_low": np.asarray(hf["env"]["low_bound"][-1], np.float32),
+            "raw_high": np.asarray(hf["env"]["high_bound"][-1], np.float32),
+            "robot": str(robot),
+        }
+
+    def _raw_mask_env(self, robot: str, camera_key, size):
+        """The mask env of a raw trajectory's robot and view on the
+        dataset's device, or None for a robot with no measured chain (its
+        masks are zero, as in the JAX package). Errors of the env raise."""
+        from robot_aware_control_tpu_torch.robot._chain_data import CHAIN_DATA
+        from robot_aware_control_tpu_torch.robot.kinematic_chain import (
+            get_mask_env,
+        )
+
+        cache_key = (robot, camera_key)
+        with self._mask_lock:
+            if cache_key not in self._mask_envs:
+                known = robot == "locobot" or robot in CHAIN_DATA
+                self._mask_envs[cache_key] = get_mask_env(
+                    robot, image_size=size, camera_key=camera_key,
+                    device=self.device) if known else None
+            return self._mask_envs[cache_key]
 
     def __getitem__(self, idx: int) -> dict:
         cfg = self._config

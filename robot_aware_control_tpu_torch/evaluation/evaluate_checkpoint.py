@@ -51,7 +51,7 @@ def evaluate_checkpoint(cfg: Config, ckpt_path: str, loader=None,
                     create_franka_transfer_loader,
                 )
 
-                loader = create_franka_transfer_loader(cfg)
+                loader = create_franka_transfer_loader(cfg, device=device)
             else:
                 _, loader = trainer._setup_data()
                 if trainer.transfer_loader is not None:
@@ -72,7 +72,7 @@ def evaluate_obj_movement(cfg: Config, ckpt_path: str, device="cuda"):
     movement-filtered loader, robonet_dataloaders.py:295)."""
     from robot_aware_control_tpu_torch.data.loader import create_movement_loaders
 
-    _, test_loader = create_movement_loaders(cfg)
+    _, test_loader = create_movement_loaders(cfg, device=device)
     trainer = _trainer(cfg, ckpt_path, device, None)
     try:
         metrics, _ = trainer._eval_epoch(test_loader, cfg.eval_batches or None)

@@ -68,7 +68,10 @@ from robot_aware_control_tpu_torch.config import Config, argparser
 from robot_aware_control_tpu_torch.data import loader as data_loader
 from robot_aware_control_tpu_torch.data.loader import device_batch, device_prefetch
 from robot_aware_control_tpu_torch.data.heatmaps import create_heatmaps
-from robot_aware_control_tpu_torch.data.records import create_record_loaders
+from robot_aware_control_tpu_torch.data.records import (
+    create_record_loaders,
+    create_record_transfer_loader,
+)
 from robot_aware_control_tpu_torch.data.synthetic import SyntheticDataset
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.models.robot_mlp import (
@@ -177,21 +180,24 @@ class PredictionTrainer:
             test = SyntheticDataset(cfg, cfg.test_batch_size,
                                     seed=cfg.seed + 1, num_batches=2)
             return train, test
+        dev = self.device
         if self.record_dir is not None:
+            self.transfer_loader = self._try_transfer(
+                create_record_transfer_loader, record_dir=self.record_dir)
             return create_record_loaders(cfg, self.record_dir)
         exp = cfg.experiment
         if exp == "train_robonet":
             # zero-shot transfer measured on locobot, a robot absent from
             # the robonet training mix (trainer.py:903-913)
             self.transfer_loader = self._try_transfer(
-                data_loader.create_locobot_transfer_loader)
-            return data_loader.create_robonet_loaders(cfg)
+                data_loader.create_locobot_transfer_loader, device=dev)
+            return data_loader.create_robonet_loaders(cfg, device=dev)
         if exp == "train_sawyer_multiview":
             # zero-shot transfer on the held-out sudri2_c1 viewpoint
             # (trainer.py:915-925)
             self.transfer_loader = self._try_transfer(
-                data_loader.create_sawyer_transfer_loader)
-            return data_loader.create_sawyer_loaders(cfg)
+                data_loader.create_sawyer_transfer_loader, device=dev)
+            return data_loader.create_sawyer_loaders(cfg, device=dev)
         factory = {
             "finetune_sawyer_view": data_loader.create_sawyer_finetune_loaders,
             "finetune_widowx": data_loader.create_widowx_finetune_loaders,
@@ -201,17 +207,17 @@ class PredictionTrainer:
             "train_locobot_pick": data_loader.create_locobot_pick_loaders,
         }.get(exp)
         if factory is not None:
-            return factory(cfg)
+            return factory(cfg, device=dev)
         if "finetune" in exp:
-            return data_loader.create_finetune_loaders(cfg)
-        train, test = data_loader.create_loaders(cfg)
+            return data_loader.create_finetune_loaders(cfg, device=dev)
+        train, test = data_loader.create_loaders(cfg, device=dev)
         self.transfer_loader = self._try_transfer(
-            data_loader.create_transfer_loader)
+            data_loader.create_transfer_loader, device=dev)
         return train, test
 
-    def _try_transfer(self, factory):
+    def _try_transfer(self, factory, **kw):
         try:
-            return factory(self.cfg)
+            return factory(self.cfg, **kw)
         except FileNotFoundError:
             self.logger.info(f"no transfer data for {factory.__name__}; "
                              "skipping transfer eval")

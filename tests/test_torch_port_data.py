@@ -6,6 +6,7 @@ movement labels, device_prefetch, the eval gif and the HTML report, and
 the trainer on HDF5 trees handing its steps the JAX trainer's windows.
 Fixture files are written in tmp_path; nothing is read from outside."""
 
+import ctypes
 import json
 import os
 import pickle
@@ -23,6 +24,7 @@ import torch
 from robot_aware_control_tpu.config import Config as JConfig
 from robot_aware_control_tpu.data import demo_io as jdemo
 from robot_aware_control_tpu.data import loader as jloader
+from robot_aware_control_tpu.data import native as jnative
 from robot_aware_control_tpu.data import records as jrecords
 from robot_aware_control_tpu.data import robonet_hdf5 as jhdf5
 from robot_aware_control_tpu.evaluation import obj_movement as jmove
@@ -89,15 +91,67 @@ def _assert_items_equal(got, want, where=""):
             assert got[k] == v, f"{where} {k}: {got[k]} != {v}"
 
 
-@pytest.fixture(params=["cv2", "native"])
-def route(request, monkeypatch):
+@pytest.fixture(scope="session")
+def jax_resize_lib(tmp_path_factory):
+    """The JAX package's `native/resize.cpp` built with its own flags into
+    this process's tmp directory and bound with its argtypes. The JAX
+    binding builds that library in place, next to its source, so several
+    test processes build one file at once; one that loads a half-written
+    file keeps no library for the rest of the process and its reader then
+    samples the nearest pixels. Its own build, here, is whole."""
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        jnative.__file__))), "native", "resize.cpp")
+    so = str(tmp_path_factory.mktemp("jax_resize") / "_resize.so")
+    subprocess.run(["c++", "-O3", "-shared", "-fPIC", "-o", so, src],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(so)
+    fp, i = ctypes.POINTER(ctypes.c_float), ctypes.c_int
+    lib.bilinear_resize_batch_f32.argtypes = [fp, i, i, i, i, fp, i, i]
+    return lib
+
+
+def assert_jax_route_bilinear():
+    """Fails unless the JAX reader's cv2-less resize is the bilinear one:
+    a float64 bilinear reference within RESIZE_TOL, where the nearest-pixel
+    fallback of `robonet_hdf5._resize` is 0.1-0.5 off on this probe."""
+    img = np.random.RandomState(5).rand(*STORED, 3).astype(np.float32)
+    got = jhdf5._resize(img, 64, 48)
+    err = float(np.abs(got - bilinear_reference(img, 64, 48)).max())
+    assert jnative.available() and err < RESIZE_TOL, (
+        f"the JAX reader's resize is not bilinear (max error {err:.3g}); "
+        "its native library did not load")
+
+
+@pytest.fixture(params=["cv2", "native", "native_after_failed_build"])
+def route(request, monkeypatch, jax_resize_lib):
     """The resize route of both readers: cv2, or both forced onto their
-    C++ resize (their sources are the same file's copies)."""
-    if request.param == "native":
+    C++ resize (their sources are the same file's copies). On the native
+    route the JAX binding is handed the library built here; in the third
+    route its process had first recorded a failed build (`_TRIED` with no
+    library), as a process that lost the build race does."""
+    if request.param.startswith("native"):
+        if request.param == "native_after_failed_build":
+            monkeypatch.setattr(jnative, "_TRIED", True)
+            monkeypatch.setattr(jnative, "_LIB", None)
+        monkeypatch.setattr(jnative, "_LIB", jax_resize_lib)
+        monkeypatch.setattr(jnative, "_TRIED", True)
         monkeypatch.setattr(jhdf5, "_HAS_CV2", False)
         monkeypatch.setattr(thdf5, "_HAS_CV2", False)
         assert thdf5.resize_route() == "native"
+        assert_jax_route_bilinear()
     return request.param
+
+
+def test_jax_route_check_rejects_nearest_pixels(monkeypatch):
+    """With the JAX binding's failed build planted and no library handed
+    to it, its reader samples the nearest pixels, and the route check that
+    guards the native cases fails loudly instead of letting them compare
+    against those samples."""
+    monkeypatch.setattr(jnative, "_TRIED", True)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jhdf5, "_HAS_CV2", False)
+    with pytest.raises(AssertionError, match="not bilinear"):
+        assert_jax_route_bilinear()
 
 
 # name: (view, file options, config options, dataset options)
@@ -129,7 +183,8 @@ def test_reader_items_equal_jax(tmp_path, route, case):
     """Three files read in the order 0, 1, 2, 0, 2 by RoboNetHDF5Dataset of
     each package (one RandomState each, drawn in the JAX order: snippet
     start, crop, jitter): every item equal bit for bit, arrays and their
-    dtypes, on the cv2 route and on the native one."""
+    dtypes, on the cv2 route and on the native one (also after a failed
+    JAX build was recorded in the process)."""
     view, file_kw, cfg_kw, ds_kw = ITEM_CASES[case]
     files = [_write(tmp_path / view / f"t{i}.hdf5", 10 * i + 1, **file_kw)
              for i in range(3)]
@@ -225,16 +280,23 @@ def test_loaders_and_trainer_import_without_h5py_cv2_imageio(tmp_path):
 
 
 def test_raw_robonet_file_raises(tmp_path):
+    """A file in the public RoboNet raw layout (env and policy groups)
+    whose required paths are missing raises RawSchemaError naming them:
+    the reader takes that layout (data/raw_robonet.py) and refuses a
+    drifted file loudly, with its schema diff."""
+    from robot_aware_control_tpu_torch.data.raw_robonet import RawSchemaError
+
     path = str(tmp_path / "sawyer_views" / "sudri0_c0" / "raw.hdf5")
     os.makedirs(os.path.dirname(path))
     with h5py.File(path, "w") as hf:
         hf.create_group("env")
         hf.create_group("policy")
-    ds = thdf5.RoboNetHDF5Dataset([path], ["sawyer_sudri0_c0"], Config(**BASE))
-    with pytest.raises(NotImplementedError, match="raw_robonet") as err:
+    ds = thdf5.RoboNetHDF5Dataset([path], ["sawyer_sudri0_c0"], Config(**BASE),
+                                  device="cpu")
+    with pytest.raises(RawSchemaError) as err:
         ds[0]
-    # the chain mask renderer is ported: the raw reader alone is missing
-    assert "item 9" in str(err.value) and "chain" not in str(err.value)
+    assert "raw.hdf5 does not parse" in str(err.value)
+    assert "missing required: env/state, policy/actions" in str(err.value)
 
 
 # ------------------------------------------------ files across packages

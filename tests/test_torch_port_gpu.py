@@ -14,6 +14,7 @@ from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.control.plan_server import PlanServer
 from robot_aware_control_tpu_torch.data.loader import DataLoader
 from robot_aware_control_tpu_torch.data.records import RecordDataset
+from robot_aware_control_tpu_torch.data.robonet_hdf5 import RoboNetHDF5Dataset
 from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.ops import kernels
@@ -76,6 +77,13 @@ from torch_sim_cases import (
     physics_card_vs_cpu,
     push_goal,
     small_gt_plan_parity,
+)
+from torch_raw_cases import (
+    NATIVE_HW,
+    RAW_LAYOUT,
+    MaskLaunches,
+    raw_card_vs_cpu,
+    raw_trees,
 )
 from torch_serve_cases import (
     cell_invariance,
@@ -909,3 +917,73 @@ def test_gpu_cyclegan_push_episode(cuda, tmp_path):
     r = cyclegan_episode(cuda, str(tmp_path))
     assert r["finite"] and len(r["actions"]) == 2 and r["translated"] == 2, r
     assert kernels.launches["capsule_mask_render"] > 0
+
+
+# ------------------------------------------------------ raw RoboNet route
+RAW_CFG = Config(video_length=31, n_past=1, n_future=9, action_dim=5,
+                 robot_dim=5, robot_joint_dim=7, seed=0, data_threads=1,
+                 experiment="train_sawyer_multiview")
+
+
+def test_gpu_mask_kernel_equals_plain_on_raw_locobot_capsules(cuda):
+    """The raw route's locobot masks at 64x85 (85 % 4 != 0: 4-byte stores):
+    every launch of reading two 31-frame trajectories is one of M = 31
+    masks and equals the plain version bit for bit."""
+    trees = raw_trees("/data", layout=(RAW_LAYOUT[3],))
+    ds = RoboNetHDF5Dataset([p for p, _, _ in trees], ["locobot_c0"] * 2,
+                            RAW_CFG, episodes=[t for _, _, t in trees],
+                            device=cuda)
+    kernels.reset_launches()
+    with MaskLaunches() as rec:
+        for i in range(2):
+            assert ds._load_file(i)["masks"].any()
+    assert kernels.launches["capsule_mask_render"] == 2
+    checked = rec.check()
+    assert [c[:4] for c in checked] == [(31, 8, *NATIVE_HW)] * 2, checked
+
+
+def test_gpu_raw_items_match_cpu(cuda):
+    """Each trajectory of the raw layout (sawyer train views, the held-out
+    view, locobot) read on the card equals the CPU's: frames, states,
+    actions, joints and bounds; locobot's masks bit for bit, the chain's
+    but within 1e-3 px of an edge."""
+    r = raw_card_vs_cpu(cuda, raw_trees("/data", T=12), RAW_CFG.replace(
+        video_length=12))
+    assert r["trajectories"] == 8 and r["locobot_differ"] == 0, r
+
+
+def test_gpu_raw_shards_match_cpu(cuda, tmp_path):
+    """Record shards of the locobot raw trees written through the reader
+    on the card equal the CPU's, bit for bit (their masks through the
+    kernel and through its plain version)."""
+    from robot_aware_control_tpu_torch.data.collect import write_training_records
+    from torch_experiment_cases import shards_equal
+
+    trees = raw_trees("/data", layout=(RAW_LAYOUT[3],), seed=5)
+    for dev, d in ((cuda, "card"), ("cpu", "cpu")):
+        write_training_records([(p, t) for p, _, t in trees],
+                               str(tmp_path / d), RAW_CFG,
+                               viewpoint="locobot_c0", device=dev)
+    assert shards_equal(str(tmp_path / "card"), str(tmp_path / "cpu"))
+
+
+def test_gpu_profiling_reads_the_card(cuda, tmp_path):
+    """device_memory_stats reads the card's allocated bytes (now and at
+    peak); a trace of a card matmul holds its kernel; the step timer waits
+    for the card before it reads the clock."""
+    import json
+
+    from robot_aware_control_tpu_torch.utils import profiling
+
+    x = torch.ones(1024, 1024, device=cuda)
+    stats = profiling.device_memory_stats()["0"]
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] >= x.numel() * 4
+    with profiling.trace(str(tmp_path)) as path:
+        y = x @ x
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    timer = profiling.StepTimer()
+    with timer:
+        torch.cuda._sleep(100_000_000)
+    assert timer.ema_s > 0.01 and float(y[0, 0]) == 1024.0

@@ -204,11 +204,16 @@ def test_argparser_takes_the_jax_flags():
 @pytest.mark.parametrize("kw", [dict(experiment="train_robonet"),
                                 dict(sharded_checkpoint=True)])
 def test_unported_options_raise(tmp_path, kw):
-    """Options the port does not have yet raise when the trainer is built;
-    data it cannot read yet (a public-RoboNet raw file, here in a
-    train_robonet tree), when it trains: the reader's error reaches the
-    trainer through the loader's threads."""
+    """Options the port does not have yet raise when the trainer is built
+    (NotImplementedError); data it cannot read (public-RoboNet raw files
+    whose required paths are missing, here in a train_robonet tree), when
+    it trains: the reader's RawSchemaError reaches the trainer through the
+    loader's threads."""
+    from robot_aware_control_tpu_torch.data.raw_robonet import RawSchemaError
+
+    expected = NotImplementedError
     if kw.get("experiment") == "train_robonet":
+        expected = RawSchemaError
         import h5py
 
         root = tmp_path / "data"
@@ -218,7 +223,7 @@ def test_unported_options_raise(tmp_path, kw):
                 hf.create_group("env")
                 hf.create_group("policy")
         kw = dict(kw, data_root=str(root), data_threads=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(expected):
         tr = PredictionTrainer(Config(**_trainer_cfg(tmp_path, **kw)),
                                device="cpu")
         if kw.get("experiment") == "train_robonet":
