@@ -292,9 +292,40 @@ Phases, each of which raises on failure:
                 the CPU (chain masks but within 1e-3 px of an edge); the
                 mask kernel timed at the route's own launch beside its
                 plain version and bound.
+ 18. int8       int8 planning (ops/quant.py) at the canonical planning
+                config of phase 6 with --plan_quantize int8 on the same
+                seed-0 weights: one warm-up and three timed plans, each
+                finite and shaped, launching the mask kernel 10 times and
+                the cell kernels never (the int8 cell is plain PyTorch
+                math around int8 GEMMs: torch._int_mm on an im2col, whose
+                launches are counted, more than 0 a plan); the latency
+                (median) beside phase 6's bf16 latency; the host syncs of
+                an int8 plan, not more than a bf16 plan's; the int8 plan's
+                largest difference from the bf16 plan; a profiled int8
+                plan (device time, busy share) beside phase 7's profiled
+                bf16 plan; at the two gate
+                convolutions' shapes (B = 100, 6x8, 512 -> 1024 channels,
+                k = 5 and 3) the card's int32 sums equal to the CPU's plain
+                float64 version on the same int8 inputs (20 rows of the
+                launch, asserted), the whole Int8Conv2d's largest
+                difference from the CPU's, and
+                per launch by CUDA events the im2col + GEMM, the GEMM
+                alone, the whole Int8Conv2d on bf16 input and cuDNN's bf16
+                gate conv, beside the int8 product's bound (1979 TOP/s).
+ 19. mesh       the parallel layouts (parallel/mesh.py) on an NCCL world
+                of one card (a FileStore rendezvous): two float32 train
+                steps of tests/torch_mesh_cases.py's small config under
+                DDP, FSDP2 and the model-axis layout, each against the
+                plain step (tests/test_multichip.py's tolerances); a DCP
+                checkpoint of the FSDP2 model and Adam restored into a
+                plain model on the card, parameters bit for bit; a mesh
+                plan at the canonical config equal to the unsharded plan
+                bit for bit in bf16 (launches counted: 160 cells through
+                sm90, 10 masks) and in int8.
 
 Prints the card line, one JSON line each of the train, serve, variants,
-data, robots, families, sim, experiments and raw phases and one of kernels
+data, robots, families, sim, experiments, raw, int8 and mesh phases and
+one of kernels
 (the mask kernel, the sm90 cell at the planner's shapes and at det's, the
 WMMA kernel and the float32 kernel, each with its launches on its own path,
 and the mask kernel at the raw route's 64x85), then, as the last line,
@@ -319,7 +350,7 @@ import torch.nn.functional as F
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models import svg
 from robot_aware_control_tpu_torch.models.registry import get_model
-from robot_aware_control_tpu_torch.ops import kernels
+from robot_aware_control_tpu_torch.ops import kernels, quant
 from robot_aware_control_tpu_torch.control.plan_server import PlanServer
 from robot_aware_control_tpu_torch.data import native, robonet_hdf5
 from robot_aware_control_tpu_torch.data.loader import DataLoader
@@ -349,6 +380,7 @@ from torch_family_cases import (  # noqa: E402
 from torch_family_cases import small_plan_parity as family_plan_parity  # noqa: E402
 from torch_family_cases import train_step_parity as family_train_parity  # noqa: E402
 from torch_mask_cases import MASK_CASES, mask_case  # noqa: E402
+import torch_mesh_cases as mesh_cases  # noqa: E402
 from torch_serve_cases import (  # noqa: E402
     cell_invariance,
     plan_checks,
@@ -2735,6 +2767,226 @@ def check_raw(dev, card: str):
     return out, entry
 
 
+# ------------------------------------------------------------------ int8
+# NVIDIA H100 SXM data sheet, dense int8 tensor-core operations
+PEAK_INT8 = 1979e12
+# the gate convolutions of the canonical planner's two cells: B = 100,
+# 6x8, cat(x, h) of 256 + 256 channels into 4 x 256 gates, k = 5 and 3
+GATE_CONVS = [(100, 6, 8, 512, 1024, 5), (100, 6, 8, 512, 1024, 3)]
+
+
+def int8_gate_conv(dev, B, H, W, Cin, O, k):
+    """The int8 product at one gate conv's shapes: the card's im2col +
+    torch._int_mm against the CPU's plain float64 version on the same int8
+    inputs (bit for bit, asserted; 20 rows of the launch: the CPU's float64
+    convolution of all 100 takes tens of seconds), the whole Int8Conv2d
+    (scale, quantize, product, dequantize, bias) against the CPU's on the
+    same float input of 20 rows (its largest difference), their times per launch by CUDA events beside
+    cuDNN's bf16 gate conv of the same shapes, and the int8 product's
+    bound."""
+    g = torch.Generator().manual_seed(k)
+    x_q = torch.randint(-127, 128, (B, H, W, Cin), generator=g,
+                        dtype=torch.int8)
+    # the CPU's float64 convolutions check 20 of the B rows (each row's
+    # sums are exact integers whatever the batch: the rows stand for all)
+    rows = 20
+    w_q = torch.randint(-127, 128, (O, Cin, k, k), generator=g,
+                        dtype=torch.int8)
+    pads = quant._pads(x_q.shape, (k, k), 1, "same")
+    w_mat = quant.gemm_weight(w_q.to(dev))
+    xd = x_q.to(dev)
+    got = quant.conv_int8_mm(xd, w_mat, O, (k, k), 1, pads)[:rows].cpu()
+    want = quant.conv_int8_plain(x_q[:rows], w_q, 1, pads)
+    if not torch.equal(got, want):
+        raise AssertionError(f"int8 conv k={k}: the card's int32 sums differ "
+                             f"from the CPU's at {(got != want).sum()} places")
+    conv = quant.Int8Conv2d(torch.randn(O, Cin, k, k, generator=g) * 0.02,
+                            torch.randn(O, generator=g))
+    xf = torch.randn(rows, H, W, Cin, generator=g)
+    y_cpu = conv(xf)
+    conv_dev = conv.to(dev)
+    conv_diff = float((conv_dev(xf.to(dev)).cpu() - y_cpu).abs().max())
+    xf = torch.randn(B, H, W, Cin, generator=g)
+    xb = xf.to(dev, torch.bfloat16)
+    mm_ms = cuda_ms(lambda: quant.conv_int8_mm(xd, w_mat, O, (k, k), 1, pads))
+    # the GEMM alone, on an im2col made once
+    a = F.pad(xd, (0, 0, *pads[1], *pads[0]))
+    sB, sH, sW, sC = a.stride()
+    a = a.as_strided((B, H, W, k, k, Cin), (sB, sH, sW, sH, sW, sC)).reshape(
+        B * H * W, -1)
+    a = F.pad(a, (0, w_mat.shape[1] - a.shape[1]))
+    gemm_ms = cuda_ms(lambda: torch._int_mm(a, w_mat.t()))
+    conv_ms = cuda_ms(lambda: conv_dev(xb))
+    w_hwio = (torch.randn(k, k, Cin, O, generator=g) * 0.02).to(dev,
+                                                                 torch.bfloat16)
+    cudnn_ms = gate_conv_ms(xb[..., :Cin // 2].contiguous(),
+                            xb[..., Cin // 2:].contiguous(), w_hwio,
+                            torch.zeros(O, device=dev))
+    ops = 2.0 * B * valid_taps(H, W, k) * Cin * O
+    nbytes = x_q.numel() + w_q.numel() + 4 * B * H * W * O
+    bound, by = bound_ms(ops, PEAK_INT8, nbytes)
+    return {"k": k, "M": B * H * W, "K": k * k * Cin, "N": O,
+            "int32_equal_cpu": True, "rows_checked_on_cpu": rows,
+            "int8_conv_max_diff_cpu": conv_diff,
+            "im2col_int_mm_ms": mm_ms, "int_mm_ms": gemm_ms,
+            "int8_conv_ms": conv_ms, "cudnn_bf16_gate_conv_ms": cudnn_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def check_int8(dev, bf16_latency, bf16_prof):
+    """Phase 18 (see the module docstring); `bf16_prof` is phase 7's
+    profile of the bf16 plan (the same config and weights)."""
+    cfg = Config(**CANONICAL)
+    model = svg.init(cfg, seed=0, device="cuda")
+    bf16 = CEMPolicy(cfg, model)
+    q8cfg = cfg.replace(plan_quantize="int8")
+    int8 = CEMPolicy(q8cfg, model)
+    start, goal = start_goal(np.random.RandomState(0))
+    want = dict(plan_launches(cfg), conv_lstm_cell=0, conv_lstm_cell_sm90=0,
+                conv_lstm_cell_f32=0)
+    plan_at = lambda p, i: p.get_action(start, goal, ep_num=1, step=i)
+    seconds, mm = [], []
+    kernels.reset_launches()
+    quant.launches["int8_mm"] = 0
+    for i in range(4):
+        before = dict(kernels.launches)
+        mm0 = quant.launches["int8_mm"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = plan_at(int8, i)
+        torch.cuda.synchronize()
+        if i:
+            seconds.append(time.perf_counter() - t0)
+        got = {k: kernels.launches[k] - before[k] for k in want}
+        mm.append(quant.launches["int8_mm"] - mm0)
+        if got != want or not mm[-1]:
+            raise AssertionError(f"int8 plan {i} launched {got} and "
+                                 f"{mm[-1]} int8 GEMMs, expected {want}")
+        if plan.shape != (cfg.horizon - 1, 2) or not np.all(np.isfinite(plan)):
+            raise AssertionError(f"bad int8 plan {plan!r}")
+    launches = dict(kernels.launches)
+    latency = statistics.median(seconds)
+    # the first switch of the sync debug mode in a process warns once at
+    # the switch itself: switched once before, unread
+    count_syncs(lambda: None)
+    plans = {}
+    syncs = {name: count_syncs(lambda: plans.setdefault(name, plan_at(p, 10)))
+             for name, p in (("bf16", bf16), ("int8", int8))}
+    n_syncs = {k: sum(v.values()) for k, v in syncs.items()}
+    if n_syncs["int8"] > n_syncs["bf16"]:
+        raise AssertionError(f"the int8 plan syncs more: {syncs}")
+    drift = float(np.abs(plans["int8"] - plans["bf16"]).max())
+    prof = {"int8": profile_plan(lambda: plan_at(int8, 11), "int8 plan"),
+            "bf16": bf16_prof}
+    convs = [int8_gate_conv(dev, *shape) for shape in GATE_CONVS]
+    out = dict(latency_s=latency, latency_runs=seconds,
+               bf16_latency_s=bf16_latency, launches=launches,
+               launches_per_plan=want, int8_gemms_per_plan=mm[1],
+               host_syncs_per_plan=n_syncs, host_sync_sites=syncs,
+               drift_from_bf16_plan=drift, gate_convs=convs)
+    for name, pr in prof.items():
+        if pr:
+            out[f"{name}_busy_ms"], out[f"{name}_wall_ms"] = pr[:2]
+            out[f"{name}_busy_share"] = pr[0] / pr[1]
+    print(f"int8 plan latency {latency:.4f} s (median of 3: "
+          + ", ".join(f"{v:.4f}" for v in seconds) + f"), bf16 "
+          f"{bf16_latency:.4f} s (phase 6); launches per plan {want} and "
+          f"{mm[1]} int8 GEMMs; host syncs a plan int8 {n_syncs['int8']}, "
+          f"bf16 {n_syncs['bf16']}; int8 plan - bf16 plan: max |diff| "
+          f"{drift:.4g}")
+    for c in convs:
+        print(f"int8 gate conv k={c['k']} (M {c['M']}, K {c['K']}, N "
+              f"{c['N']}): int32 sums equal the CPU's (Int8Conv2d outputs "
+              f"differ by {c['int8_conv_max_diff_cpu']:.3g}); im2col + "
+              f"_int_mm {c['im2col_int_mm_ms']:.4f} ms (the GEMM alone "
+              f"{c['int_mm_ms']:.4f}), whole Int8Conv2d "
+              f"{c['int8_conv_ms']:.4f} ms, cuDNN bf16 gate conv "
+              f"{c['cudnn_bf16_gate_conv_ms']:.4f} ms, int8 bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+    return out
+
+
+# ------------------------------------------------------------------ mesh
+def check_mesh(dev):
+    """Phase 19 (see the module docstring)."""
+    import torch.distributed as dist
+
+    from robot_aware_control_tpu_torch import convert
+    from robot_aware_control_tpu_torch.parallel import mesh as pmesh
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    store = dist.FileStore(os.path.join(d, "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        cfg = Config(**mesh_cases.TINY)
+        params, bn = convert.jax_flat_trees(
+            svg.init(cfg, seed=0, device="cpu", train=True))
+        plain = mesh_cases.train_steps(cfg, params, bn, device="cuda")
+        layouts, fsdp = {}, None
+        for kind in ("replicated", "data", "model"):
+            c = mesh_cases.layout_config(kind)
+            layout = pmesh.Layout(c)
+            metrics, model, opt = mesh_cases.trained(c, params, bn, layout,
+                                                     device="cuda")
+            got = (metrics, convert.jax_flat_trees(model)[0])
+            errs = mesh_cases.step_errors(got, plain, c.lr)
+            if errs["step1"] > 1 or errs["step2"] > 1 or errs["params_lr"] > 5:
+                raise AssertionError(f"{kind} layout step differs from the "
+                                     f"plain step: {errs}")
+            layouts[kind] = errs
+            if kind == "data":
+                fsdp = (model, opt, got[1])
+        # a DCP checkpoint of the FSDP2 model and Adam restored into a plain
+        # model and optimizer on the card
+        path = ckpt.save_checkpoint_sharded(d, 2, fsdp[0], fsdp[1])
+        model = mesh_cases.train_model(params, bn, cfg, "cuda")
+        _, opt = make_train_step(cfg, model)
+        step = ckpt.load_checkpoint_sharded(path, model, opt)
+        restored = convert.jax_flat_trees(model)[0]
+        if step != 2 or any(not np.array_equal(restored[k], v)
+                            for k, v in fsdp[2].items()):
+            raise AssertionError("the DCP checkpoint did not restore the "
+                                 "FSDP2 model's parameters")
+        n_opt = sum(len(v) for v in opt.state.values())
+        # a mesh plan against the unsharded plan, bf16 and int8
+        mesh = pmesh.get_mesh(axis="data")
+        plans = {}
+        start, goal = start_goal(np.random.RandomState(0))
+        pcfg = Config(**CANONICAL)
+        pmodel = svg.init(pcfg, seed=0, device="cuda")
+        for q in ("none", "int8"):
+            qcfg = pcfg.replace(plan_quantize=q)
+            plain_p = CEMPolicy(qcfg, pmodel).get_action(start, goal, ep_num=3)
+            meshed = CEMPolicy(qcfg, pmodel, mesh=mesh)
+            kernels.reset_launches()
+            got = meshed.get_action(start, goal, ep_num=3)
+            launched = dict(kernels.launches)
+            if not np.array_equal(got, plain_p):
+                raise AssertionError(f"mesh plan ({q}) differs from the "
+                                     "unsharded plan by "
+                                     f"{np.abs(got - plain_p).max()}")
+            plans[q] = {"equal": True, "launches": launched}
+        want = plan_launches(pcfg)
+        if plans["none"]["launches"] != want:
+            raise AssertionError(f"mesh plan launched {plans['none']}, "
+                                 f"expected {want}")
+    finally:
+        dist.destroy_process_group()
+    out = dict(backend="nccl", world=1, layouts=layouts,
+               dcp={"path": os.path.basename(path), "step": step,
+                    "optimizer_state_entries": n_opt, "params_equal": True},
+               plans=plans)
+    print("NCCL world of 1: DDP, FSDP2 and the model-axis layout, two steps "
+          "each against the plain step (errors at their limits' scale: "
+          + ", ".join(f"{k} {v['step1']:.3g}/{v['step2']:.3g}/"
+                      f"{v['params_lr']:.3g}" for k, v in layouts.items())
+          + f"); DCP save of the FSDP2 model restored bit for bit into a "
+          f"plain one (step {step}); mesh plans == unsharded plans, bf16 "
+          f"(launches {plans['none']['launches']}) and int8 (launches "
+          f"{plans['int8']['launches']})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2776,7 +3028,8 @@ def main() -> int:
     f32_launches, f32_policy, _, _, f32_latency = canonical_plans(
         compute_dtype="float32")
     phase("profile")
-    profile_plan(lambda: policy.get_action(start, goal, ep_num=2, step=0))
+    bf16_prof = profile_plan(
+        lambda: policy.get_action(start, goal, ep_num=2, step=0))
     f32_plan = f32_plan_summary(f32_latency, f32_launches, profile_plan(
         lambda: f32_policy.get_action(start, goal, ep_num=2, step=0),
         "float32 plan"))
@@ -2897,6 +3150,29 @@ def main() -> int:
     print(f"phase raw took {raw['seconds']:.1f} s; the script "
           f"{raw['script_seconds']:.1f} s so far")
     print(json.dumps({"raw": raw}))
+
+    # int8 planning: the canonical planner with --plan_quantize int8
+    t = phase("int8")
+    int8 = check_int8(dev, latency, bf16_prof)
+    int8["seconds"] = time.perf_counter() - t
+    mask_entry["launches_int8_plan"] = int8["launches_per_plan"][
+        "capsule_mask_render"]
+    cell_entry["launches_int8_plan"] = int8["launches_per_plan"][
+        "conv_lstm_cell_sm90"]
+    print(json.dumps({"int8": dict(int8, card=card)}))
+
+    # the parallel layouts on an NCCL world of one card
+    t = phase("mesh")
+    mesh = check_mesh(dev)
+    mesh["seconds"] = time.perf_counter() - t
+    mesh["script_seconds"] = time.perf_counter() - t_start
+    mask_entry["launches_mesh_plan"] = mesh["plans"]["none"]["launches"][
+        "capsule_mask_render"]
+    cell_entry["launches_mesh_plan"] = mesh["plans"]["none"]["launches"][
+        "conv_lstm_cell_sm90"]
+    print(f"phases int8 and mesh took {int8['seconds']:.1f} s and "
+          f"{mesh['seconds']:.1f} s; the script {mesh['script_seconds']:.1f} s")
+    print(json.dumps({"mesh": dict(mesh, card=card)}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

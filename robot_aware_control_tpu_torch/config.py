@@ -34,6 +34,12 @@ def str2intlist(value):
     return tuple(int(num) for num in value.split(","))
 
 
+def str2strlist(value):
+    if isinstance(value, (list, tuple)):
+        return tuple(value)
+    return tuple(v for v in value.split(",") if v)
+
+
 @dataclass(frozen=True)
 class Config:
     """Immutable run configuration (field names match the reference CLI)."""
@@ -102,7 +108,8 @@ class Config:
     # the hand-written ConvLSTM cell kernel on inference paths (planning,
     # eval); training runs the autograd cell (the kernel has no backward)
     fused_lstm: bool = True
-    # int8 planning path (none|int8); only "none" is ported
+    # int8 planning path (none|int8): the rollout's convolutions and conv
+    # cells in int8 (ops/quant.py)
     plan_quantize: str = "none"
     # planning-as-a-service endpoint (control/plan_server.py): one warm
     # planner on the GPU host, robot clients over TCP
@@ -240,12 +247,24 @@ class Config:
     remat: bool = False
     remat_policy: str = "full"  # full|conv
 
+    # --- parallel layouts (parallel/mesh.py) ---
+    # ranks of the process group to use (0: all of them)
+    num_devices: int = 0
+    # mesh dimension names: the data axis first, then the model axis
+    mesh_axes: Tuple[str, ...] = ("data",)
+    # ranks a model axis (tensor parallelism) groups; must divide the world
+    model_axis_size: int = 1
+    # replicated (DDP) | data (FSDP2) | model (channel-sharded parameters
+    # over the model axis, gathered at use)
+    param_sharding: str = "replicated"
+
     def __post_init__(self):
-        if self.plan_quantize != "none":
-            raise NotImplementedError(
-                f"plan_quantize={self.plan_quantize!r}: int8 planning is not "
-                "ported yet (ops/quant.py; ROADMAP.md, section 1 item 6); use "
-                "'none'")
+        if self.plan_quantize not in ("none", "int8"):
+            raise ValueError(f"plan_quantize={self.plan_quantize!r}: expected "
+                             "'none' or 'int8'")
+        if self.param_sharding not in ("replicated", "data", "model"):
+            raise ValueError(f"param_sharding={self.param_sharding!r}: "
+                             "expected 'replicated', 'data' or 'model'")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -295,6 +314,8 @@ def create_parser() -> argparse.ArgumentParser:
             parser.add_argument(name, type=str2bool, default=f.default)
         elif f.name == "camera_ids":
             parser.add_argument(name, type=str2intlist, default=f.default)
+        elif f.name == "mesh_axes":
+            parser.add_argument(name, type=str2strlist, default=f.default)
         elif f.type in ("int", int):
             parser.add_argument(name, type=int, default=f.default)
         elif f.type in ("float", float, "Optional[float]"):
@@ -312,9 +333,8 @@ def argparser(argv=None) -> Tuple[Config, list]:
 
 # The JAX Config's fields that the port does not carry, at their JAX
 # defaults: a YAML file written by the JAX package's `to_yaml` loads here
-# while they hold these values. wandb logging and the device mesh fields
-# are not ported (ROADMAP.md, section 1 item 7 for the mesh); `gpu` the
-# JAX package itself accepts and ignores.
+# while they hold these values. wandb logging is not ported; `gpu` the JAX
+# package itself accepts and ignores.
 JAX_ONLY_DEFAULTS = {
     "wandb": False,
     "wandb_entity": "pal",
@@ -322,10 +342,6 @@ JAX_ONLY_DEFAULTS = {
     "wandb_group": None,
     "wandb_job_type": None,
     "gpu": None,
-    "num_devices": 0,
-    "mesh_axes": ["data"],
-    "model_axis_size": 1,
-    "param_sharding": "replicated",
 }
 
 
@@ -349,8 +365,9 @@ def from_yaml(path: str, **overrides) -> Config:
                 f"{path}: {k} is a JAX package field the port does not "
                 f"carry; it must keep its default {default!r}")
     data.update(overrides)
-    if "camera_ids" in data:
-        data["camera_ids"] = tuple(data["camera_ids"])
+    for k in ("camera_ids", "mesh_axes"):
+        if k in data:
+            data[k] = tuple(data[k])
     return Config(**data)
 
 

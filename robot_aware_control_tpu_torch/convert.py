@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from robot_aware_control_tpu_torch.baselines.cyclegan import InstanceNorm
 from robot_aware_control_tpu_torch.config import Config
@@ -142,7 +143,11 @@ def _jax_leaf(model: nn.Module, name: str):
 
 
 def _to_jax(t: torch.Tensor, perm) -> np.ndarray:
-    """A copy (never a view of the live tensor) in the JAX layout."""
+    """A copy (never a view of the live tensor) in the JAX layout; a
+    DTensor (a sharded parameter or optimizer state) is gathered whole,
+    which every rank of its mesh must do alike."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     a = t.detach().float().cpu().numpy()
     return np.array(a if perm is None else a.transpose(perm), order="C")
 
@@ -199,7 +204,7 @@ def optimizer_from_jax(cfg: Config, model: nn.Module, optimizer, flat: dict):
     if cfg.optimizer == "sgd":
         return
     for p, key, perm in _param_paths(model):
-        like = lambda k: _from_jax(flat[f"[0].{k}{key}"], perm).to(p)
+        like = lambda k: _like_param(_from_jax(flat[f"[0].{k}{key}"], perm), p)
         if cfg.optimizer == "adam":
             optimizer.state[p] = {
                 "step": torch.tensor(float(flat["[0].count"])),
@@ -208,6 +213,15 @@ def optimizer_from_jax(cfg: Config, model: nn.Module, optimizer, flat: dict):
             optimizer.state[p] = {"nu": like("nu")}
         else:
             raise ValueError(f"Unknown optimizer: {cfg.optimizer}")
+
+
+def _like_param(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """t as p holds it: p's dtype and device, and p's placements where p
+    is a DTensor."""
+    if isinstance(p, DTensor):
+        return distribute_tensor(t.to(p.dtype).to(p.device), p.device_mesh,
+                                 p.placements)
+    return t.to(p)
 
 
 def _from_jax_trees(model: nn.Module, params, bn_state):

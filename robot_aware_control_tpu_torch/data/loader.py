@@ -8,9 +8,10 @@ batch's order, file sets and (with one worker) contents equal the JAX
 package's. `device_prefetch` stages each batch in pinned host memory and
 copies it to the GPU on a side stream while the previous batch computes.
 
-The JAX loaders shard files and batches over JAX processes; the port runs
-one process (parallel layouts are ROADMAP section 1 item 7), so
-`_host_shard` and `_host_batch` keep every file and the whole batch.
+As the JAX loaders shard files and batches over JAX processes, the port's
+shard them over the data axis of the process group (`_host_shard`,
+`_host_batch`); without a process group they keep every file and the
+whole batch.
 """
 
 from __future__ import annotations
@@ -255,14 +256,26 @@ def train_test_split(pairs, split: float, seed: int = 0):
     return [pairs[i] for i in idx[:cut]], [pairs[i] for i in idx[cut:]]
 
 
-def _host_shard(pairs):
-    """This process's files: all of them (one process)."""
-    return list(pairs)
+def _host_shard(pairs, config: Config):
+    """This rank's disjoint share of the files (parallel/mesh.py:
+    host_shard_files, by the rank's data index; the ranks of one model
+    group read the same files). Every rank keeps at least one file, so that
+    its loader can fill its slice of the global batch."""
+    from robot_aware_control_tpu_torch.parallel.mesh import (
+        data_info,
+        host_shard_files,
+    )
+
+    shard = host_shard_files(pairs, *data_info(config))
+    return shard if shard else list(pairs)[:1]
 
 
-def _host_batch(bs: int) -> int:
-    """This process's share of a batch: all of it (one process)."""
-    return max(1, bs)
+def _host_batch(bs: int, config: Config) -> int:
+    """This rank's share of a batch: batch sizes are global, split over
+    the data axis of the process group (the whole batch without one)."""
+    from robot_aware_control_tpu_torch.parallel.mesh import data_info
+
+    return max(1, bs // data_info(config)[1])
 
 
 def _mk_loader(config: Config, pairs, seed: int, bs: int, shuffle=True,
@@ -284,12 +297,12 @@ def _split_loaders(config: Config, pairs, device="cuda"):
     if not pairs:
         raise FileNotFoundError(f"no hdf5 under {config.data_root}")
     train, test = train_test_split(pairs, config.train_val_split, config.seed)
-    train, test = _host_shard(train), _host_shard(test)
+    train, test = _host_shard(train, config), _host_shard(test, config)
     return (
-        _mk_loader(config, train, config.seed, _host_batch(config.batch_size),
+        _mk_loader(config, train, config.seed, _host_batch(config.batch_size, config),
                    device=device),
         _mk_loader(config, test, config.seed + 1,
-                   _host_batch(config.test_batch_size), device=device),
+                   _host_batch(config.test_batch_size, config), device=device),
     )
 
 
@@ -383,12 +396,12 @@ def _head_split_loaders(config: Config, pairs, n_test: int, n_train: int,
     if not pairs:
         raise FileNotFoundError(f"no hdf5 under {config.data_root}")
     train, test = head_split(pairs, n_test, n_train)
-    train, test = _host_shard(train), _host_shard(test)
+    train, test = _host_shard(train, config), _host_shard(test, config)
     return (
-        _mk_loader(config, train, config.seed, _host_batch(config.batch_size),
+        _mk_loader(config, train, config.seed, _host_batch(config.batch_size, config),
                    device=device),
         _mk_loader(config, test, config.seed + 1,
-                   _host_batch(config.test_batch_size), device=device),
+                   _host_batch(config.test_batch_size, config), device=device),
     )
 
 
@@ -402,12 +415,12 @@ def _finetune_split_loaders(config: Config, pairs, device="cuda"):
         nte = max(1, len(pairs) // 5)
     test = pairs[:nte]
     train = pairs[nte:nte + ntr]
-    train, test = _host_shard(train), _host_shard(test)
+    train, test = _host_shard(train, config), _host_shard(test, config)
     return (
-        _mk_loader(config, train, config.seed, _host_batch(config.batch_size),
+        _mk_loader(config, train, config.seed, _host_batch(config.batch_size, config),
                    drop_last=False, device=device),
         _mk_loader(config, test, config.seed + 1,
-                   _host_batch(config.test_batch_size), drop_last=False,
+                   _host_batch(config.test_batch_size, config), drop_last=False,
                    device=device),
     )
 
@@ -446,7 +459,7 @@ def create_sawyer_transfer_loader(config: Config, device="cuda"):
         raise FileNotFoundError("no sawyer transfer hdf5 found")
     take, _ = train_test_split(pairs, config.train_val_split, config.seed)
     return _mk_loader(config, take or pairs, config.seed + 2,
-                      _host_batch(config.test_batch_size), drop_last=False,
+                      _host_batch(config.test_batch_size, config), drop_last=False,
                       device=device)
 
 
@@ -481,7 +494,7 @@ def create_widowx_transfer_loader(config: Config, device="cuda"):
     if not pairs:
         raise FileNotFoundError("no widowx transfer hdf5 found")
     return _mk_loader(config, pairs, config.seed + 2,
-                      _host_batch(config.test_batch_size), drop_last=False,
+                      _host_batch(config.test_batch_size, config), drop_last=False,
                       device=device)
 
 
@@ -494,7 +507,7 @@ def create_franka_transfer_loader(config: Config, device="cuda"):
     if not pairs:
         raise FileNotFoundError("no franka transfer hdf5 found")
     return _mk_loader(config, pairs, config.seed + 2,
-                      _host_batch(config.test_batch_size), shuffle=False,
+                      _host_batch(config.test_batch_size, config), shuffle=False,
                       drop_last=False, device=device)
 
 
@@ -542,7 +555,7 @@ def create_locobot_transfer_loader(config: Config, device="cuda"):
     if not pairs:
         raise FileNotFoundError("no locobot transfer hdf5 found")
     return _mk_loader(config, pairs, config.seed + 2,
-                      _host_batch(config.test_batch_size), drop_last=False,
+                      _host_batch(config.test_batch_size, config), drop_last=False,
                       device=device)
 
 
@@ -590,12 +603,12 @@ def create_finetune_loaders(config: Config, device="cuda"):
     train_pairs, test_pairs = pairs[:ntr], pairs[ntr:ntr + nte]
     if not test_pairs:  # tiny trees: reuse the tail of train for eval
         test_pairs = train_pairs[-1:]
-    train_pairs, test_pairs = _host_shard(train_pairs), _host_shard(test_pairs)
+    train_pairs, test_pairs = _host_shard(train_pairs, config), _host_shard(test_pairs, config)
     return (
         _mk_loader(config, train_pairs, config.seed,
-                   _host_batch(config.batch_size), device=device),
+                   _host_batch(config.batch_size, config), device=device),
         _mk_loader(config, test_pairs, config.seed + 1,
-                   _host_batch(config.test_batch_size), device=device),
+                   _host_batch(config.test_batch_size, config), device=device),
     )
 
 
@@ -685,7 +698,8 @@ def create_demo_video_loaders(config: Config, demo_dir: Optional[str] = None):
             drop_last=False)
 
     return (
-        mk(_host_shard(train_pairs), config.seed, _host_batch(config.batch_size)),
-        mk(_host_shard(test_pairs), config.seed + 1,
-           _host_batch(config.test_batch_size)),
+        mk(_host_shard(train_pairs, config), config.seed,
+           _host_batch(config.batch_size, config)),
+        mk(_host_shard(test_pairs, config), config.seed + 1,
+           _host_batch(config.test_batch_size, config)),
     )

@@ -186,9 +186,14 @@ def _record_pairs(ds: RecordDataset, views_dir: str, dirs):
 
 
 def _record_loader(ds: RecordDataset, pairs, seed: int, bs: int,
-                   config: Config, **kw):
+                   config: Config, shard: bool = True, **kw):
     from robot_aware_control_tpu_torch.data import loader as L
 
+    # this rank's share of the global batch and (but for a transfer
+    # loader) of the episodes, as the HDF5 route's loaders take them
+    if shard:
+        pairs = L._host_shard(pairs, config)
+    bs = L._host_batch(bs, config)
     sub = RecordSubset(ds, [i for _, i in pairs])
     return L.DataLoader(sub, min(bs, max(len(sub), 1)),
                         num_workers=config.data_threads, seed=seed, **kw)
@@ -248,4 +253,5 @@ def create_record_transfer_loader(config: Config, record_dir: str):
         raise FileNotFoundError(f"no sawyer transfer episodes under {record_dir}")
     take, _ = L.train_test_split(pairs, config.train_val_split, config.seed)
     return _record_loader(ds, take or pairs, config.seed + 2,
-                          config.test_batch_size, config, drop_last=False)
+                          config.test_batch_size, config, shard=False,
+                          drop_last=False)

@@ -13,7 +13,11 @@ BatchNorm in train mode normalizes by the batch's statistics and does not
 touch its running statistics: it appends (module, batch mean, unbiased
 batch variance) to a list the caller passes, and the caller applies them
 with `apply_batch_stats` once, after the forward. A forward that autograd
-recomputes for a checkpointed backward thus updates nothing twice.
+recomputes for a checkpointed backward thus updates nothing twice. Inside
+`batch_stats_group(group)` (a data-parallel train step) the batch's
+statistics are those of every rank's rows together: sums all-reduced over
+the group, differentiably, as XLA reduces them over a sharded batch (a
+group of one rank keeps the local statistics' bits).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import contextvars
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -45,6 +50,50 @@ def conv_rows(rows: Optional[int]):
         yield
     finally:
         _CONV_ROWS.reset(token)
+
+
+# the process group whose ranks' rows make up train-mode BatchNorm's batch
+# (None: this rank's rows alone)
+_BN_GROUP = contextvars.ContextVar("batch_stats_group", default=None)
+
+
+@contextlib.contextmanager
+def batch_stats_group(group):
+    """Inside, train-mode BatchNorm normalizes by the statistics of the
+    whole batch split over `group`'s ranks (parallel/mesh.py)."""
+    token = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """x summed over the ranks of a process group; the gradient of every
+    rank's sum reaches every rank's x (an all-reduce both ways)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _global_var_mean(xf, group):
+    """Biased variance, mean and count over N, H, W of the rows of every
+    rank of `group` (equal shards), in two passes like the local
+    statistics; the all-reduces carry the gradient to every rank's rows."""
+    n = xf.shape[0] * xf.shape[1] * xf.shape[2] * dist.get_world_size(group)
+    mean = _SumOverGroup.apply(xf.sum((0, 1, 2)), group) / n
+    var = _SumOverGroup.apply(((xf - mean) ** 2).sum((0, 1, 2)), group) / n
+    return var, mean, n
 
 
 def same_pads(size: int, k: int, stride: int):
@@ -146,9 +195,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if stats is None:
             mean, var = self.running_mean, self.running_var
+        elif _BN_GROUP.get() is not None and dist.get_world_size(_BN_GROUP.get()) > 1:
+            var, mean, n = _global_var_mean(xf, _BN_GROUP.get())
         else:
             var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
             n = x.shape[0] * x.shape[1] * x.shape[2]
+        if stats is not None:
             # torch tracks the *unbiased* variance in running statistics
             stats.append((self, mean.detach(),
                           var.detach() * (n / max(n - 1, 1))))

@@ -33,6 +33,23 @@ writes them beside the last goal frame as
 which writes nothing without imageio), as the JAX policy's
 `_plot_rollouts` does.
 
+With --plan_quantize int8 the policy plans with an int8 copy of the model
+(ops/quant.py:quantize_model, once, at construction, as the JAX policy
+transforms its params): every convolution and conv cell of the rollout
+multiplies int8 values into int32 sums, with one activation scale per
+request's (and chunk's) rows; the caller's model stays float.
+
+With a `mesh` (a torch.distributed DeviceMesh with a "data" axis) the
+candidates shard over the data axis, the JAX package's
+`with_sharding_constraint(acts, P("data"))` (cem.py:65-67, 124-128): N is
+padded up to a multiple of the axis size, every rank draws the global
+action and prior noise from its identically seeded generator and rolls out
+its own N / n candidates (no chunking, as in the JAX package), the costs
+are all-gathered, and every rank runs the same top-k and refit and returns
+the same plan. Under int8 each conv's activation scale is the MAX over the
+ranks (ops/quant.py:amax_group). A mesh planner plans batched requests one
+after another (cem.py:245-248).
+
 `get_action_batched` plans R requests together: per iteration one rollout
 of R x N candidates (R x chunk with chunking) through the same kernels,
 top-k and refit per request. Each request draws from its own generator in
@@ -54,6 +71,12 @@ import torch
 
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.models.registry import is_stochastic
+from robot_aware_control_tpu_torch.ops import quant
+from robot_aware_control_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    mesh_axis,
+    split_rows,
+)
 from robot_aware_control_tpu_torch.planning.rollout import (
     RolloutEngine,
     TrajectorySampler,
@@ -75,14 +98,11 @@ class CEMPolicy:
     def __init__(self, cfg: Config, model, device="cuda", horizon=None,
                  opt_iter=None, action_candidates=None, topk=None,
                  init_std=None, mesh=None, **engine_kw):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: candidates sharded over several GPUs wait for the "
-                "parallel layouts (parallel/mesh.py; ROADMAP.md, section 1 "
-                "item 7)")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = model
+        # --plan_quantize int8: the rollout's convolutions in int8
+        # (ops/quant.py; planning is forward-only)
+        self.model = quant.maybe_quantize_plan_model(cfg, model)
         # sampled actions are zero-padded to the model's action space
         # (reference: cem.py:86 pads 2-D planar actions to 5-D robonet actions)
         self.pad_to = cfg.action_dim
@@ -91,6 +111,11 @@ class CEMPolicy:
         self.num_candidates = action_candidates or cfg.action_candidates
         self.topk = topk or cfg.topk
         self.init_std = init_std if init_std is not None else cfg.cem_init_std
+        # the candidates shard over the mesh's data axis
+        self.mesh = mesh
+        self._group, self._index, self._ranks = (
+            (None, 0, 1) if mesh is None else mesh_axis(mesh, "data"))
+        self.num_candidates = -(-self.num_candidates // self._ranks) * self._ranks
         engine_kw.setdefault("pick", self.engine_pick)
         self.engine = RolloutEngine(cfg, device=self.device, **engine_kw)
 
@@ -165,7 +190,10 @@ class CEMPolicy:
         cfg, dev = self.cfg, self.device
         R, T = len(preps), self.horizon
         N, K = self.num_candidates, self.topk
-        chunk = min(int(cfg.candidates_batch_size or N), N)
+        n_local = N // self._ranks
+        # under a mesh each rank rolls out its n_local candidates at once
+        chunk = n_local if self.mesh is not None else min(
+            int(cfg.candidates_batch_size or N), N)
         while N % chunk:
             chunk -= 1
         inputs = [None if preps[0][0][i] is None else
@@ -173,7 +201,8 @@ class CEMPolicy:
         gens = [p[1] for p in preps]
         mean = torch.stack([p[2] for p in preps])
         std = torch.stack([p[3] for p in preps])
-        prior = prior_shape(cfg, chunk)
+        # the prior's draws are the global batch's (N rows under a mesh)
+        prior = prior_shape(cfg, chunk * self._ranks)
         stochastic = is_stochastic(cfg)
         for i in range(self.opt_iter):
             eps = torch.stack([noise[i] if noise is not None else torch.randn(
@@ -183,22 +212,25 @@ class CEMPolicy:
             if self.zero_candidate and i == 0:
                 acts[:, -1] = 0.0  # "do nothing" candidate (cem.py:82-83)
             acts = self.clamp(acts)
-            padded = self.pad(acts)
+            padded = split_rows(self.pad(acts), self._index, self._ranks, 1)
             sum_cost = []
-            for s in range(0, N, chunk):
+            for s in range(0, n_local, chunk):
                 # each request's prior noise, one draw a model step, as the
-                # model would draw it (det draws nothing)
-                eps_prior = torch.cat([torch.stack([
+                # model would draw it (det draws nothing); a mesh rank
+                # keeps its candidates' rows of the global draw
+                eps_prior = torch.cat([split_rows(torch.stack([
                     torch.randn(prior, generator=g, device=dev)
-                    for _ in range(T - 1)]) for g in gens], 1
-                ) if stochastic else None
+                    for _ in range(T - 1)]), self._index, self._ranks, 1)
+                    for g in gens], 1) if stochastic else None
                 cands = padded[:, s:s + chunk].reshape(
                     (R * chunk,) + padded.shape[2:])
-                sum_cost.append(self.engine(
-                    self.model, inputs[0], inputs[1], inputs[2], cands,
-                    inputs[3], inputs[4], goal_states=inputs[5],
-                    eps_prior=eps_prior).view(R, chunk))
-            sum_cost = torch.cat(sum_cost, 1)
+                with quant.amax_group(self._group):
+                    sum_cost.append(self.engine(
+                        self.model, inputs[0], inputs[1], inputs[2], cands,
+                        inputs[3], inputs[4], goal_states=inputs[5],
+                        eps_prior=eps_prior).view(R, chunk))
+            sum_cost = all_gather_rows(torch.cat(sum_cost, 1), self._group,
+                                       self._ranks, 1)
             # top-k and refit per request (a reduction over a batch of
             # requests may add in another order); equal costs rank the lower
             # index first, as jax.lax.top_k does (pick rollouts clipped to
@@ -244,6 +276,9 @@ class CEMPolicy:
         if len({has(g) for g in goals}) > 1:
             raise ValueError("batched requests must agree on goal masks/"
                              "states presence")
+        if self.mesh is not None:  # requests one after another
+            return np.stack([self._plan([self._host_prep(*r)])[0].cpu().numpy()
+                             for r in reqs])
         # the padding repeats the last request with a generator of its own
         reqs += [reqs[-1]] * ((1 << (R - 1).bit_length()) - R)
         preps = [self._host_prep(*r) for r in reqs]

@@ -38,6 +38,7 @@ from robot_aware_control_tpu_torch.models.common import composite
 from robot_aware_control_tpu_torch.models.registry import get_model
 from robot_aware_control_tpu_torch.models.svg import compute_dtype
 from robot_aware_control_tpu_torch.ops.losses import zero_robot_region
+from robot_aware_control_tpu_torch.ops import quant
 from robot_aware_control_tpu_torch.ops.nn import conv_rows
 from robot_aware_control_tpu_torch.planning.cost import RobotWorldCost
 from robot_aware_control_tpu_torch.robot import locobot_kinematics as lk
@@ -108,7 +109,10 @@ class RolloutEngine:
     algorithm by the batch, and on the H100 five of the encoder's
     convolutions summed in another order at B = 400 than at B = 100. The
     costs run per request too (a reduction's order depends on how many
-    rows it reduces)."""
+    rows it reduces). Under --plan_quantize int8 each request's rows take
+    an activation scale of their own in every conv (ops/quant.py:
+    amax_rows), as the JAX package's vmap over requests takes its max per
+    request."""
 
     def __init__(self, cfg: Config, camera_key: str = "locobot_c0",
                  push_height: float = lk.PUSH_HEIGHT,
@@ -265,7 +269,7 @@ class RolloutEngine:
             m_in, r_in, hm_in = _conditioning(
                 cfg, masks[t], masks[t + 1], states[t], states[t + 1],
                 heatmaps[t], heatmaps[t + 1])
-            with conv_rows(n if R > 1 else None):
+            with conv_rows(n if R > 1 else None), quant.amax_rows(n):
                 out, carry = _model_step(
                     cfg, model, carry, model_in, m_in, r_in, hm_in,
                     actions_tna[t], generator, sample_mean=cfg.sample_mean,
@@ -321,7 +325,9 @@ class TrajectorySampler:
     def __init__(self, cfg: Config, model, device="cuda", engine=None,
                  **engine_kw):
         self.cfg = cfg
-        self.model = model
+        # --plan_quantize int8 (ops/quant.py; a model already quantized,
+        # e.g. by CEMPolicy, comes back as it is)
+        self.model = quant.maybe_quantize_plan_model(cfg, model)
         self.engine = engine or RolloutEngine(cfg, device=device, **engine_kw)
         self.device = self.engine.device
 

@@ -10,8 +10,18 @@ newest `ckpt_<step>` of a log dir; `load_checkpoint` restores the named
 trees a caller asks for (a finetune load leaves out "opt"). The robot
 models' checkpoints hold the trees "joint_model" and "gripper_model"
 (training/robot_trainer.py:load_robot_models). Files are read without
-pickle. The JAX package's orbax directories (sharded checkpoints)
-are not read here.
+pickle.
+
+Sharded checkpoints (the JAX package's orbax directories,
+`checkpoint.py:save_checkpoint_sharded`) are `ckpt_<step>/` directories
+written with `torch.distributed.checkpoint` (DCP): every rank writes its
+shards of the model's and the optimizer's state, keyed by parameter name
+whatever the layout (`torch.distributed.checkpoint.state_dict`), so a
+checkpoint saved under one layout and world size restores into any other
+(`load_checkpoint_sharded`). `latest_checkpoint` finds them beside the
+.npz files. The npz format stays the interchange with the JAX package:
+its orbax directories are not read here (`load_checkpoint_sharded` says
+so).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 _WRITERS: list = []
 _ERRORS: list = []
@@ -102,8 +113,11 @@ def load_checkpoint(path: str, templates: Dict[str, dict]
     another shape, raises. Returns ({name: {keystr: array}}, step)."""
     wait_for_checkpoints()  # a background writer may still hold this file
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: sharded (orbax) checkpoints are not ported yet")
+        _check_dcp(path)
+        raise ValueError(
+            f"{path}: a sharded checkpoint holds the port's own state, not "
+            "the JAX trees; load it into a trainer (PredictionTrainer."
+            "load_checkpoint) or with load_checkpoint_sharded")
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     step = int(flat.pop("__step__"))
@@ -125,3 +139,68 @@ def load_checkpoint(path: str, templates: Dict[str, dict]
             tree[key] = sub[key]
         out[name] = tree
     return out, step
+
+
+def _check_dcp(path: str):
+    if not os.path.isfile(os.path.join(path, ".metadata")):
+        raise NotImplementedError(
+            f"{path}: not a torch.distributed.checkpoint directory (the JAX "
+            "package's orbax checkpoints are not read by the port; save "
+            "them as ckpt_<step>.npz there)")
+
+
+def _in_group() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _state(model, optimizer=None) -> dict:
+    from torch.distributed.checkpoint.state_dict import (
+        get_model_state_dict,
+        get_state_dict,
+    )
+
+    if optimizer is None:
+        return {"model": get_model_state_dict(model)}
+    msd, osd = get_state_dict(model, optimizer)
+    return {"model": msd, "optim": osd}
+
+
+def save_checkpoint_sharded(log_dir: str, step: int, model,
+                            optimizer=None) -> str:
+    """Writes `ckpt_<step>/` with DCP: the model's state (parameters and
+    buffers) and the optimizer's, in whatever layout they are (plain,
+    DDP, FSDP2 or DTensor shards), and the step. Every rank of the
+    process group calls it. Returns the directory."""
+    import torch.distributed.checkpoint as dcp
+
+    wait_for_checkpoints()
+    path = os.path.join(log_dir, f"ckpt_{step}")
+    state = _state(model, optimizer)
+    state["step"] = torch.tensor(step)
+    dcp.save(state, checkpoint_id=path, no_dist=not _in_group())
+    return path
+
+
+def load_checkpoint_sharded(path: str, model, optimizer=None) -> int:
+    """Restores a `save_checkpoint_sharded` directory into `model` (and
+    `optimizer`) in their current layout, resharding as the layouts and
+    world sizes differ. Every rank of the process group calls it. Returns
+    the step."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.state_dict import (
+        set_model_state_dict,
+        set_state_dict,
+    )
+
+    _check_dcp(path)
+    state = _state(model, optimizer)
+    state["step"] = torch.tensor(0)
+    dcp.load(state, checkpoint_id=path, no_dist=not _in_group())
+    if optimizer is None:
+        set_model_state_dict(model, state["model"])
+    else:
+        set_state_dict(model, optimizer, model_state_dict=state["model"],
+                       optim_state_dict=state["optim"])
+    return int(state["step"])

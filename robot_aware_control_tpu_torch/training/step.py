@@ -29,9 +29,11 @@ backward pass.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -46,7 +48,7 @@ from robot_aware_control_tpu_torch.models.svg import compute_dtype
 from robot_aware_control_tpu_torch.ops import losses as L
 from robot_aware_control_tpu_torch.ops import metrics as M
 from robot_aware_control_tpu_torch.ops.encoders import SKIP_CHANNELS
-from robot_aware_control_tpu_torch.ops.nn import apply_batch_stats
+from robot_aware_control_tpu_torch.ops.nn import apply_batch_stats, batch_stats_group
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -264,7 +266,21 @@ def _save_convolutions(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def make_train_step(cfg: Config, model):
+class _Window(nn.Module):
+    """One train window of `model` as one module call, the unit a parallel
+    layout wraps (DDP, FSDP2): forward(batch, noise) -> (loss, totals,
+    BatchNorm updates)."""
+
+    def __init__(self, model, fn):
+        super().__init__()
+        self.model = model
+        self._fn = fn
+
+    def forward(self, batch, noise):
+        return self._fn(batch, noise)
+
+
+def make_train_step(cfg: Config, model, layout=None):
     """Builds the whole-window train step of `model` (a training model of
     any family: float32 parameters) and its optimizer.
 
@@ -279,8 +295,14 @@ def make_train_step(cfg: Config, model):
       heatmaps (W, B, H, W', 1) iff model_use_heatmap
       batch_weight (B,) optional movement weighting (trainer.py:426-429)
     noise: `draw_noise`'s dict for the window, else drawn from `generator`.
-    """
-    optimizer = make_optimizer(cfg, model.parameters())
+
+    With a `layout` (parallel/mesh.py:Layout) the batch is this rank's
+    slice of the global batch; `noise` and the generator's draws are the
+    global batch's, of which the step takes this rank's rows; BatchNorm
+    normalizes by the global batch's statistics; the gradients and the
+    metrics are the global batch's (averaged over the data axis). The
+    optimizer then holds the layout's parameters (`step.window`, the
+    wrapped window module, holds them too)."""
     dtype = compute_dtype(cfg)
     window = cfg.n_past + cfg.n_future
     stochastic = is_stochastic(cfg)
@@ -316,12 +338,9 @@ def make_train_step(cfg: Config, model):
     else:
         run = step_fn
 
-    def train_step(batch, sched_prob, generator=None, noise=None):
+    def window_loss(batch, noise):
         x = batch["images"]
         B = x.shape[1]
-        if noise is None:
-            noise = draw_noise(cfg, B, window - 1, generator, x.device,
-                               sched_prob)
         carry = get_model(cfg).init_carry(cfg, B, dtype, x.device)
         skip = skip_zeros(cfg, B, dtype, x.device)
         x_prev = x[0]
@@ -338,18 +357,43 @@ def make_train_step(cfg: Config, model):
         loss = totals["recon_loss"]
         if stochastic:
             loss = loss + cfg.beta * totals["kld"]
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        return loss, totals, stats
+
+    module = _Window(model, window_loss)
+    if layout is not None:
+        module = layout.wrap(module, model)
+    optimizer = make_optimizer(cfg, module.parameters())
+    group = None if layout is None else layout.data_group
+    data_size = 1 if layout is None else layout.data_size
+
+    def train_step(batch, sched_prob, generator=None, noise=None):
+        x = batch["images"]
+        if noise is None:
+            noise = draw_noise(cfg, x.shape[1] * data_size, window - 1,
+                               generator, x.device, sched_prob)
+        if layout is not None:
+            noise = layout.local_noise(noise)
+        params = (contextlib.nullcontext() if layout is None
+                  else layout.train_params(model))
+        with params:
+            with batch_stats_group(group):
+                loss, totals, stats = module(batch, noise)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if layout is not None:
+            layout.sync_grads(module.parameters())
         optimizer.step()
         apply_batch_stats(stats)
         metrics = {k: v.detach() / cfg.n_future for k, v in totals.items()}
         metrics["loss"] = loss.detach()
-        return metrics
+        return metrics if layout is None else layout.mean(metrics)
 
+    train_step.window = module
     return train_step, optimizer
 
 
-def make_eval_step(cfg: Config, model, autoregressive: bool = True):
+def make_eval_step(cfg: Config, model, autoregressive: bool = True,
+                   layout=None):
     """Builds the eval step over an n_eval window (reference:
     trainer.py:566-734): the prior drives the prediction
     (force_use_prior), BatchNorm uses its running statistics and the cells
@@ -358,7 +402,9 @@ def make_eval_step(cfg: Config, model, autoregressive: bool = True):
 
     eval_step(batch, generator=None, noise=None) -> (per-step metrics, each
     (n_eval-1,), predictions (n_eval-1, B, H, W, 3)), on the batch's
-    device."""
+    device. With a `layout` the batch is this rank's slice and the draws
+    are the global batch's, cut to this rank's rows (the metrics stay this
+    rank's: the trainer averages them over the data axis)."""
     dtype = compute_dtype(cfg)
     stochastic = is_stochastic(cfg)
 
@@ -368,7 +414,10 @@ def make_eval_step(cfg: Config, model, autoregressive: bool = True):
         masks = batch.get("pred_masks", true_masks)
         B, n = x.shape[1], cfg.n_eval
         if noise is None:
-            noise = draw_noise(cfg, B, n - 1, generator, x.device)
+            rows = B if layout is None else B * layout.data_size
+            noise = draw_noise(cfg, rows, n - 1, generator, x.device)
+        if layout is not None:
+            noise = layout.local_noise(noise)
         carry = get_model(cfg).init_carry(cfg, B, dtype, x.device)
         skip = skip_zeros(cfg, B, dtype, x.device)
         x_prev = x[0]

@@ -4,6 +4,8 @@ src/prediction/trainer.py:53-1471).
 
     python -m robot_aware_control_tpu_torch.training.trainer \\
         --experiment synthetic --device cuda [--flags of config.py]
+    torchrun --nproc_per_node 2 -m robot_aware_control_tpu_torch.training.trainer \\
+        --device cpu --param_sharding data [--flags]
 
 The loop of the JAX trainer, for every model family (svg, det,
 svg_vec, det_vec, cdna_det, cdna_robonet):
@@ -44,17 +46,29 @@ svg_vec, det_vec, cdna_det, cdna_robonet):
     best of 3 prior samples by PSNR (trainer.py:384-416);
   * --model copy: the parameter-free copy baseline's metrics over full
     train, test and transfer epochs instead of training, with a rollout
-    gif of each split (trainer.py:569-598).
+    gif of each split (trainer.py:569-598);
+  * the parallel layouts (trainer.py:92-123; parallel/mesh.py:Layout):
+    inside an initialised process group (torchrun, or workers that call
+    init_process_group themselves) the trainer runs on a (data, model)
+    mesh of its ranks, --param_sharding replicated (DDP), data (FSDP2) or
+    model (channel-sharded DTensors over --model_axis_size ranks), named
+    by --mesh_axes. Batch sizes are global; each rank reads its data
+    index's share (synthetic data seeded cfg.seed + 1000 * index, files
+    and record shards through host_shard_files), BatchNorm's statistics,
+    the draws, the gradients and the metrics are the global batch's, and
+    rank 0 logs to the run's dir (rank r to <dir>/rank<r>). Checkpoints
+    are sharded `ckpt_<step>/` directories (training/checkpoint.py, DCP)
+    with --sharded_checkpoint or more than one rank (trainer.py:459-460),
+    and load into any layout.
 
-Not ported yet, and raising where they are read: sharded checkpoints,
-public-RoboNet raw files. The
-synthetic data carries no heatmaps, so heatmap-conditioned models raise on
-it, as the JAX trainer fails. Not ported: mesh sharding, wandb.
+The synthetic data carries no heatmaps, so heatmap-conditioned models
+raise on it, as the JAX trainer fails. Not ported: wandb.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from collections import defaultdict
@@ -62,6 +76,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from robot_aware_control_tpu_torch import convert
 from robot_aware_control_tpu_torch.config import Config, argparser
@@ -74,6 +89,7 @@ from robot_aware_control_tpu_torch.data.records import (
 )
 from robot_aware_control_tpu_torch.data.synthetic import SyntheticDataset
 from robot_aware_control_tpu_torch.models.registry import get_model
+from robot_aware_control_tpu_torch.parallel.mesh import Layout, process_info
 from robot_aware_control_tpu_torch.models.robot_mlp import (
     GripperStatePredictor,
     JointPosPredictor,
@@ -107,13 +123,17 @@ class PredictionTrainer:
     def __init__(self, cfg: Config, device="cuda",
                  record_dir: Optional[str] = None):
         family = get_model(cfg)
-        if cfg.sharded_checkpoint:
-            raise NotImplementedError(
-                "sharded_checkpoint: orbax checkpoints are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.log_dir = make_log_folder(cfg)
-        self.logger = RunLogger(cfg, self.log_dir)
+        # a process group: the (data, model) mesh of its ranks
+        self.layout = Layout(cfg) if dist.is_initialized() else None
+        self.rank, self.world = process_info()
+        own_dir = self.log_dir
+        if self.rank:
+            own_dir = os.path.join(self.log_dir, f"rank{self.rank}")
+            os.makedirs(own_dir, exist_ok=True)
+        self.logger = RunLogger(cfg, own_dir)
         self._step = 0
         self._start_epoch = 0
         self._video_rng = np.random.RandomState(cfg.seed)
@@ -134,14 +154,17 @@ class PredictionTrainer:
                 self.robot_model = get_robot_model(cfg, device=self.device)
         if cfg.model == "copy":
             # no parameters: eval steps with the learned models' metric keys
-            self.model = self.optimizer = self.train_step = None
+            self.model = self.optimizer = self.train_step = self.window = None
             self.eval_step_ar = make_copy_eval_step(cfg, autoregressive=True)
             self.eval_step_1 = make_copy_eval_step(cfg, autoregressive=False)
             return
         self.model = family.init(cfg, cfg.seed, self.device, train=True)
-        self.train_step, self.optimizer = make_train_step(cfg, self.model)
-        self.eval_step_ar = make_eval_step(cfg, self.model, autoregressive=True)
-        self.eval_step_1 = make_eval_step(cfg, self.model, autoregressive=False)
+        self.train_step, self.optimizer = make_train_step(cfg, self.model,
+                                                          self.layout)
+        # the window module that holds the layout's parameters
+        self.window = self.train_step.window
+        self.eval_step_ar = make_eval_step(cfg, self.model, True, self.layout)
+        self.eval_step_1 = make_eval_step(cfg, self.model, False, self.layout)
 
     # ------------------------------------------------------------------
     def _load_learned_robot_model(self) -> dict:
@@ -175,10 +198,16 @@ class PredictionTrainer:
                     "model_use_heatmap: the synthetic data carries no "
                     "heatmaps; train heatmap models on an experiment whose "
                     "loader makes them")
-            train = SyntheticDataset(cfg, cfg.batch_size, seed=cfg.seed,
-                                     num_batches=max(cfg.epoch_size, 1))
-            test = SyntheticDataset(cfg, cfg.test_batch_size,
-                                    seed=cfg.seed + 1, num_batches=2)
+            # batch sizes are global: each data index generates its share
+            # (trainer.py:182-191)
+            index = 0 if self.layout is None else self.layout.data_index
+            train = SyntheticDataset(
+                cfg, data_loader._host_batch(cfg.batch_size, cfg),
+                seed=cfg.seed + 1000 * index,
+                num_batches=max(cfg.epoch_size, 1))
+            test = SyntheticDataset(
+                cfg, data_loader._host_batch(cfg.test_batch_size, cfg),
+                seed=cfg.seed + 1 + 1000 * index, num_batches=2)
             return train, test
         dev = self.device
         if self.record_dir is not None:
@@ -340,6 +369,8 @@ class PredictionTrainer:
                 per_step, _ = step_fn(w, self._generator)
                 for k, v in per_step.items():
                     agg[k] = agg.get(k, 0.0) + v.mean() / num
+        if self.layout is not None:  # the global batch's metrics
+            samples = [self.layout.mean(agg) for agg in samples]
         synced = [{k: float(v) for k, v in agg.items()} for agg in samples]
         synced.sort(key=lambda d: d.get("psnr", 0.0), reverse=True)
         return synced[0]
@@ -351,7 +382,7 @@ class PredictionTrainer:
         n = 0
         batches = device_prefetch(iter(loader), self.device)
         try:
-            for batch in batches:
+            for batch in self._in_step(batches):
                 for mode, tag in ((False, "1step_"), (True, "autoreg_")):
                     for k, v in self._eval_video(batch, autoregressive=mode).items():
                         agg[f"{tag}{k}"] += v
@@ -361,6 +392,30 @@ class PredictionTrainer:
         finally:
             batches.close()
         return {k: v / max(n, 1) for k, v in agg.items()}, n
+
+    def _in_step(self, batches):
+        """The batches while every rank of the data axis still has one (the
+        ranks' eval steps run their collectives in step; their shares of
+        the files may give them different counts)."""
+        for batch in batches:
+            if self.layout is not None and not self._all_ranks(True):
+                return
+            yield batch
+        if self.layout is not None:
+            self._all_ranks(False)  # the ranks that still had one stop too
+
+    def _all_ranks(self, has: bool) -> bool:
+        flag = torch.tensor([float(has)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN,
+                        group=self.layout.data_group)
+        return bool(flag.item())
+
+    def _full_params(self):
+        """The model's whole parameters (the eval steps and the npz trees
+        read them): FSDP2's unshard or the gathered DTensors."""
+        if self.layout is None or self.window is None:
+            return contextlib.nullcontext()
+        return self.layout.full_params(self.window, self.model)
 
     def _plot_eval(self, loader, epoch: int, tag: str = "eval"):
         """The autoregressive rollout of the loader's first batch over its
@@ -373,7 +428,7 @@ class PredictionTrainer:
         video = self._video(device_batch(batch, self.device))
         _, preds = self.eval_step_ar(self._window(video, 0, n), self._generator)
         path = eval_gif(
-            os.path.join(self.log_dir, f"{tag}_{epoch}.gif"),
+            os.path.join(self.logger.dir, f"{tag}_{epoch}.gif"),
             batch["images"][1:n], preds.float().cpu().numpy(),
             masks=batch["masks"][1:n])
         if path:
@@ -381,28 +436,55 @@ class PredictionTrainer:
 
     # ------------------------------------------------------------------
     def _trees(self) -> Dict[str, dict]:
-        """Model and optimizer state as the JAX package's flat trees."""
+        """Model and optimizer state as the JAX package's flat trees (a
+        sharded layout's gathered whole on every rank)."""
         params, bn = convert.jax_flat_trees(self.model)
         return {"params": params, "bn": bn,
                 "opt": convert.optimizer_to_jax(self.cfg, self.model,
                                                 self.optimizer)}
 
+    @property
+    def _sharded_checkpoints(self) -> bool:
+        """Sharded checkpoints with --sharded_checkpoint or more than one
+        rank (trainer.py:459-460)."""
+        return self.cfg.sharded_checkpoint or self.world > 1
+
     def _save(self, epoch: int):
-        path = ckpt.save_checkpoint(self.log_dir, self._step, self._trees(),
-                                    background=self.cfg.async_checkpoint)
+        if self._sharded_checkpoints:
+            path = ckpt.save_checkpoint_sharded(self.log_dir, self._step,
+                                                self.model, self.optimizer)
+        else:
+            path = ckpt.save_checkpoint(self.log_dir, self._step,
+                                        self._trees(),
+                                        background=self.cfg.async_checkpoint)
         self.logger.info(f"saved checkpoint {path} (epoch {epoch})")
 
     def load_checkpoint(self, path: str, finetune: bool = False):
-        """Loads a ckpt_<step>.npz of either package: the parameters, the
-        BatchNorm statistics and, unless `finetune`, the optimizer's state
-        and the step (trainer.py:484-494)."""
+        """Loads a ckpt_<step>.npz of either package, or a sharded
+        ckpt_<step>/ directory saved by the port under any layout: the
+        parameters, the BatchNorm statistics and, unless `finetune`, the
+        optimizer's state and the step (trainer.py:484-494)."""
+        if os.path.isdir(path):
+            step = ckpt.load_checkpoint_sharded(
+                path, self.model, None if finetune else self.optimizer)
+            if not finetune:
+                self._step = step
+            return
         templates = self._trees()
         if finetune:
             del templates["opt"]
         trees, step = ckpt.load_checkpoint(path, templates)
-        self.model.load_state_dict(
-            convert.state_dict_from_flat(trees["params"], trees["bn"]),
-            strict=True)
+        sd = convert.state_dict_from_flat(trees["params"], trees["bn"])
+        if self.layout is None or self.layout.kind == "replicated":
+            self.model.load_state_dict(sd, strict=True)
+        else:  # whole tensors into the layout's shards
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions,
+                set_model_state_dict,
+            )
+
+            set_model_state_dict(self.model, sd, options=StateDictOptions(
+                full_state_dict=True, strict=True))
         if not finetune:
             convert.optimizer_from_jax(self.cfg, self.model, self.optimizer,
                                        trees["opt"])
@@ -462,7 +544,9 @@ class PredictionTrainer:
                              for k, v in device_agg.items()}
             dt = time.perf_counter() - t_epoch
             self.last_epoch = {"seconds": dt, "data_wait_s": wait}
-            B = batch["images"].shape[1]
+            # the global batch (this rank's times the data axis)
+            B = batch["images"].shape[1] * (
+                1 if self.layout is None else self.layout.data_size)
             spv = max(len(batch["images"]) // window, 1)
             epoch_metrics["frames_per_sec"] = cfg.epoch_size * B * window * spv / dt
             self.logger.scalars(epoch_metrics, self._step, prefix="train/")
@@ -473,14 +557,18 @@ class PredictionTrainer:
             if (epoch + 1) % cfg.checkpoint_interval == 0:
                 self._save(epoch)
             if (epoch + 1) % cfg.eval_interval == 0:
-                ev, _ = self._eval_epoch(test_loader, eval_cap)
-                self.logger.scalars(ev, self._step, prefix="eval/")
-                self.logger.info(
-                    "eval " + " ".join(f"{k}={v:.4f}" for k, v in ev.items()))
-                if self.transfer_loader is not None:
-                    tv, _ = self._eval_epoch(self.transfer_loader, eval_cap)
-                    self.logger.scalars(tv, self._step, prefix="transfer/")
-                self._plot_eval(test_loader, epoch)
+                with self._full_params():
+                    self._eval_and_plot(test_loader, eval_cap, epoch)
+
+    def _eval_and_plot(self, test_loader, eval_cap, epoch):
+        ev, _ = self._eval_epoch(test_loader, eval_cap)
+        self.logger.scalars(ev, self._step, prefix="eval/")
+        self.logger.info(
+            "eval " + " ".join(f"{k}={v:.4f}" for k, v in ev.items()))
+        if self.transfer_loader is not None:
+            tv, _ = self._eval_epoch(self.transfer_loader, eval_cap)
+            self.logger.scalars(tv, self._step, prefix="transfer/")
+        self._plot_eval(test_loader, epoch)
 
     def copy_baseline(self):
         """The copy baseline's world-error floor (trainer.py:569-598): the
@@ -505,6 +593,20 @@ class PredictionTrainer:
         return results
 
 
+def init_from_env(device: str) -> bool:
+    """Joins the process group that torchrun describes in the environment
+    (WORLD_SIZE, RANK, MASTER_ADDR, MASTER_PORT): NCCL on the GPU of
+    LOCAL_RANK, gloo on the CPU. Returns whether it did."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
+
+
 def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda",
@@ -513,11 +615,14 @@ def main(argv=None):
     cfg, unparsed = argparser(rest)
     if unparsed:
         raise ValueError(f"unknown flags: {unparsed}")
+    joined = init_from_env(args.device)
     trainer = PredictionTrainer(cfg, device=args.device)
     try:
         trainer.train()
     finally:
         trainer.logger.close()
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -987,3 +987,76 @@ def test_gpu_profiling_reads_the_card(cuda, tmp_path):
     with timer:
         torch.cuda._sleep(100_000_000)
     assert timer.ema_s > 0.01 and float(y[0, 0]) == 1024.0
+
+
+# ------------------------------------------------------------- int8, mesh
+@pytest.mark.parametrize("shape", [(2, 6, 8, 24, 32, 5, 1),
+                                   (1, 3, 4, 5, 7, 3, 1),
+                                   (2, 7, 9, 6, 16, 3, 2)])
+def test_gpu_int8_gemm_route_equals_plain(cuda, shape):
+    """The card's int8 product (im2col + torch._int_mm) gives the CPU's
+    float64 int32 sums, K and N not multiples of 8, M under 16 rows."""
+    from robot_aware_control_tpu_torch.ops import quant
+
+    B, H, W, C, O, k, stride = shape
+    g = torch.Generator().manual_seed(B * 100 + C)
+    x_q = torch.randint(-127, 128, (B, H, W, C), generator=g, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (O, C, k, k), generator=g, dtype=torch.int8)
+    pads = quant._pads(x_q.shape, (k, k), stride, "same")
+    got = quant.conv_int8_mm(x_q.to(cuda), quant.gemm_weight(w_q.to(cuda)), O,
+                             (k, k), stride, pads).cpu()
+    assert torch.equal(got, quant.conv_int8_plain(x_q, w_q, stride, pads))
+
+
+def test_gpu_int8_plan_runs_no_cell_and_matches_cpu(cuda):
+    """A small int8 plan on the card launches the mask kernel and int8
+    GEMMs, never a cell kernel, and its Int8Conv2d outputs equal the
+    CPU's; the plan itself is finite and clamped."""
+    from robot_aware_control_tpu_torch.ops import quant
+
+    cfg = Config(**dict(SMALL_SVG, plan_quantize="int8"))
+    policy = CEMPolicy(cfg, svg.init(cfg, seed=3, device="cuda"))
+    start, goal = start_goal(np.random.RandomState(0))
+    kernels.reset_launches()
+    mm = quant.launches["int8_mm"]
+    plan = policy.get_action(start, goal)
+    assert kernels.launches["conv_lstm_cell"] == 0
+    assert kernels.launches["capsule_mask_render"] == cfg.opt_iter
+    assert quant.launches["int8_mm"] > mm
+    assert np.all(np.isfinite(plan)) and np.abs(plan).max() <= 0.05
+    conv = quant.Int8Conv2d(torch.randn(16, 8, 3, 3), torch.randn(16))
+    x = torch.randn(4, 6, 8, 8)
+    assert torch.equal(conv.to(cuda)(x.to(cuda)).cpu(), conv.cpu()(x))
+
+
+def test_gpu_layouts_on_an_nccl_world_of_one(cuda, tmp_path):
+    """DDP, FSDP2 and the model-axis layout on one card take the plain
+    step's two steps; a mesh plan equals the unsharded plan."""
+    import torch.distributed as dist
+
+    import torch_mesh_cases as cases
+    from robot_aware_control_tpu_torch import convert
+    from robot_aware_control_tpu_torch.parallel import mesh as pmesh
+
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        cfg = Config(**cases.TINY)
+        params, bn = convert.jax_flat_trees(
+            svg.init(cfg, seed=0, device="cpu", train=True))
+        plain = cases.train_steps(cfg, params, bn, device="cuda")
+        for kind in ("replicated", "data", "model"):
+            c = cases.layout_config(kind)
+            got = cases.train_steps(c, params, bn, pmesh.Layout(c),
+                                    device="cuda")
+            errs = cases.step_errors(got, plain, c.lr)
+            assert errs["step1"] <= 1 and errs["step2"] <= 1, (kind, errs)
+            assert errs["params_lr"] <= 5, (kind, errs)
+        pcfg = Config(**SMALL_SVG)
+        model = svg.init(pcfg, seed=3, device="cuda")
+        start, goal = start_goal(np.random.RandomState(0))
+        want = CEMPolicy(pcfg, model).get_action(start, goal)
+        meshed = CEMPolicy(pcfg, model, mesh=pmesh.get_mesh(axis="data"))
+        np.testing.assert_array_equal(meshed.get_action(start, goal), want)
+    finally:
+        dist.destroy_process_group()

@@ -54,6 +54,7 @@ from robot_aware_control_tpu_torch.planning.rollout import TrajectorySampler
 from robot_aware_control_tpu_torch.robot import locobot_kinematics as tlk
 from robot_aware_control_tpu_torch.robot.mask_renderer import CapsuleMaskRenderer
 from robot_aware_control_tpu_torch.training import plot
+from torch_mesh_cases import world1_mesh
 from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
 # the small float32 config of tests/test_plan_server.py
@@ -119,7 +120,8 @@ def _start_goal(rng, states=False):
 def test_config_serving_fields_match_jax():
     """The serving fields, and the fields of the simulated envs, the
     episode runner and data collection, exist with the JAX defaults and
-    parse from the command line; plan_quantize other than none raises."""
+    parse from the command line; plan_quantize takes int8 (ops/quant.py)
+    and nothing but none and int8."""
     names = ["env", "plan_server_host", "plan_server_port",
              "dynamics_model_ckpt", "demo_cost", "pick_wide_x_std",
              "cem_open_loop", "replan_every", "max_episode_length",
@@ -155,8 +157,10 @@ def test_config_serving_fields_match_jax():
     assert not rest
     assert (cfg.env, cfg.demo_cost, cfg.plan_server_port,
             cfg.dynamics_model_ckpt) == ("LocobotPick", True, 7000, "c.npz")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Config(plan_quantize="int8")
+    cfg, rest = argparser(["--plan_quantize", "int8"])
+    assert not rest and cfg.plan_quantize == "int8"
+    with pytest.raises(ValueError, match="plan_quantize"):
+        Config(plan_quantize="int4")
 
 
 def test_calibration_table_matches_jax():
@@ -261,9 +265,10 @@ def test_variant_plans_match_jax(weights, rng, monkeypatch, variant):
 
 def test_constructor_overrides_and_hooks(weights, rng, monkeypatch, tmp_path):
     """horizon/opt_iter/action_candidates/topk/init_std override the config
-    as in the JAX constructor; mesh is not ported (the parallel layouts,
-    item 7); a debug_cem plan hands save_gif its rollout beside the goal; a
-    chain robot's policy plans."""
+    as in the JAX constructor; a mesh of one gloo process plans what the
+    plain policy plans (tests/test_torch_port_mesh.py holds a world of 2);
+    a debug_cem plan hands save_gif its rollout beside the goal; a chain
+    robot's policy plans."""
     cfg = Config(**SERVE_KW)
     model = _model(weights)
     p = CEMPolicy(cfg, model, device="cpu", horizon=4, opt_iter=1,
@@ -271,9 +276,13 @@ def test_constructor_overrides_and_hooks(weights, rng, monkeypatch, tmp_path):
     assert (p.horizon, p.opt_iter, p.num_candidates, p.topk, p.init_std) == (
         4, 1, 5, 2, 0.01)
     start, goal = _start_goal(rng)
-    assert p.get_action(start, goal).shape == (3, 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        CEMPolicy(cfg, model, device="cpu", mesh=object())
+    plan = p.get_action(start, goal)
+    assert plan.shape == (3, 2)
+    with world1_mesh(tmp_path) as mesh:
+        meshed = CEMPolicy(cfg, model, device="cpu", horizon=4, opt_iter=1,
+                           action_candidates=5, topk=2, init_std=0.01,
+                           mesh=mesh)
+        np.testing.assert_array_equal(meshed.get_action(start, goal), plan)
     saved = []
     monkeypatch.setattr(plot, "save_gif",
                         lambda path, frames, fps=2: saved.append((path, frames)))

@@ -172,8 +172,9 @@ def test_run_sweep_picks_the_best_and_reports_a_failing_trial(tmp_path,
 def test_yaml_files_read_across_packages(tmp_path):
     """A port config through the port's YAML (round trip, overrides) and
     the JAX package's from_yaml; a JAX config's YAML (all 157 fields)
-    through the port's from_yaml. Unknown keys raise KeyError; a JAX-only
-    field away from its default raises NotImplementedError."""
+    through the port's from_yaml, the mesh fields too (model_axis_size 2
+    loads). Unknown keys raise KeyError; a JAX-only field (wandb) away from
+    its default raises NotImplementedError."""
     fields = dict(g_dim=17, reward_type="dontcare", camera_ids=(1, 2),
                   experiment="train_sawyer_multiview", lr=1e-4, multiview=True)
     cfg = tconfig.Config(**fields)
@@ -184,8 +185,8 @@ def test_yaml_files_read_across_packages(tmp_path):
     jcfg = jconfig.from_yaml(path)
     for k in tconfig.Config.__dataclass_fields__:
         got, want = getattr(cfg, k), getattr(jcfg, k)
-        assert (tuple(got) if k == "camera_ids" else got) == \
-            (tuple(want) if k == "camera_ids" else want), k
+        tup = k in ("camera_ids", "mesh_axes")
+        assert (tuple(got) if tup else got) == (tuple(want) if tup else want), k
     jpath = str(tmp_path / "j.yaml")
     jconfig.to_yaml(jconfig.Config(**fields), jpath)
     assert tconfig.from_yaml(jpath) == cfg
@@ -200,8 +201,13 @@ def test_yaml_files_read_across_packages(tmp_path):
         f.write("not_a_flag: 3\n")
     with pytest.raises(KeyError):
         tconfig.from_yaml(bad)
-    jconfig.to_yaml(jconfig.Config(num_devices=4), jpath)
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    # the mesh fields are the port's too (parallel/mesh.py)
+    mesh = dict(num_devices=4, model_axis_size=2, mesh_axes=("dp", "tp"),
+                param_sharding="model")
+    jconfig.to_yaml(jconfig.Config(**mesh), jpath)
+    assert tconfig.from_yaml(jpath) == tconfig.Config(**mesh)
+    jconfig.to_yaml(jconfig.Config(wandb=True), jpath)
+    with pytest.raises(NotImplementedError, match="wandb"):
         tconfig.from_yaml(jpath)
 
 

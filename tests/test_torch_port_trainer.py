@@ -204,16 +204,17 @@ def test_argparser_takes_the_jax_flags():
 @pytest.mark.parametrize("kw", [dict(experiment="train_robonet"),
                                 dict(sharded_checkpoint=True)])
 def test_unported_options_raise(tmp_path, kw):
-    """Options the port does not have yet raise when the trainer is built
-    (NotImplementedError); data it cannot read (public-RoboNet raw files
-    whose required paths are missing, here in a train_robonet tree), when
-    it trains: the reader's RawSchemaError reaches the trainer through the
-    loader's threads."""
+    """Data the port cannot read (public-RoboNet raw files whose required
+    paths are missing, here in a train_robonet tree) raises when the
+    trainer trains: the reader's RawSchemaError reaches the trainer through
+    the loader's threads. sharded_checkpoint, which raised until the
+    parallel layouts were ported, now works: the trainer writes sharded
+    ckpt_<step>/ directories (torch.distributed.checkpoint), auto-resume
+    finds the newest, and a second trainer restores it (its parameters,
+    Adam's state and the step); the npz loader names the route."""
     from robot_aware_control_tpu_torch.data.raw_robonet import RawSchemaError
 
-    expected = NotImplementedError
     if kw.get("experiment") == "train_robonet":
-        expected = RawSchemaError
         import h5py
 
         root = tmp_path / "data"
@@ -223,11 +224,27 @@ def test_unported_options_raise(tmp_path, kw):
                 hf.create_group("env")
                 hf.create_group("policy")
         kw = dict(kw, data_root=str(root), data_threads=1)
-    with pytest.raises(expected):
-        tr = PredictionTrainer(Config(**_trainer_cfg(tmp_path, **kw)),
-                               device="cpu")
-        if kw.get("experiment") == "train_robonet":
-            tr.train()
+        with pytest.raises(RawSchemaError):
+            PredictionTrainer(Config(**_trainer_cfg(tmp_path, **kw)),
+                              device="cpu").train()
+        return
+    cfg = Config(**_trainer_cfg(tmp_path, **kw))
+    tr = PredictionTrainer(cfg, device="cpu")
+    tr.train()
+    tr.logger.close()
+    path = tckpt.latest_checkpoint(tr.log_dir)
+    assert os.path.isdir(path) and path.endswith(f"ckpt_{tr._step}")
+    assert os.path.isfile(os.path.join(path, ".metadata"))
+    again = PredictionTrainer(cfg, device="cpu")
+    again._resume()
+    assert again._step == tr._step
+    want, got = tr._trees(), again._trees()
+    for tree in ("params", "bn", "opt"):
+        for k, v in want[tree].items():
+            np.testing.assert_array_equal(got[tree][k], v, err_msg=k)
+    again.logger.close()
+    with pytest.raises(ValueError, match="load_checkpoint_sharded"):
+        tckpt.load_checkpoint(path, {})
 
 
 # --------------------------------------------------------------- trainer

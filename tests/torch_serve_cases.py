@@ -185,7 +185,7 @@ def plan_checks(policy, repeats=3, batch_sizes=(2, 3, 4)):
     return dict(single=singles[0], singles=singles, batched=diffs)
 
 
-def serve_checks(server, singles, rounds=3, clients=4):
+def serve_checks(server, singles, rounds=3, clients=4, h=48, w=64):
     """A started PlanServer: the first request twice through one client;
     then `rounds` rounds of one client alone and of `clients` concurrent
     clients sending distinct requests. Every served plan must equal
@@ -195,7 +195,7 @@ def serve_checks(server, singles, rounds=3, clients=4):
     size is one)."""
     from robot_aware_control_tpu_torch.control.plan_server import PlanClient
 
-    reqs = requests(clients)
+    reqs = requests(clients, h=h, w=w)
     host, port = server.address
     conns = [PlanClient(host, port) for _ in range(clients)]
     try:
