@@ -18,11 +18,16 @@ Phases, each of which raises on failure:
   4. cell       the ConvLSTM-cell kernels vs their plain version at the
                 planner's shapes (B=100, 6x8, Cx=C=256, k=5 and k=3), the
                 trainer's eval shapes (B=16, the same otherwise) and those
-                of 2 and 4 requests planned together (B=200, 400): in bf16
-                the wgmma/TMA kernel both take and the WMMA kernel it
-                replaced, and the float32 kernel (csrc/conv_lstm_cell_f32.cu);
-                then small odd shapes, and a bf16 cell of 260 channels on a
-                262-channel pixel stride (the WMMA kernel reads it in place);
+                of 2 and 4 requests planned together (B=200, 400): the
+                wgmma/TMA kernel in bf16 and the float32 kernel
+                (csrc/conv_lstm_cell_f32.cu); then the shapes that took the
+                retired WMMA kernel before, every bf16 one
+                through the wgmma/TMA kernel, one launch each, with what it
+                cannot read in place staged (kernels.stage_cell): 13/20, odd
+                C 13/21, det's 260 and 258 contiguous and in padded views
+                with NaN pad lanes, g_dims 252 and 100 at B=100 (x
+                contiguous, h and c padded views), 260 channels on a
+                262-channel pixel stride, and a misaligned x;
   5. parity     a small float32 CEM plan on the GPU (kernels) equals the
                 same plan on the CPU (plain versions) for injected noise;
   6. plan       the canonical planner of bench.py (svg, g_dim 256, z_dim 64,
@@ -64,11 +69,13 @@ Phases, each of which raises on failure:
                 need, its time with every tile culled and with none culled,
                 the share of tests its skip rule keeps (the rule replayed in
                 PyTorch) and its registers and spills; for the cell per
-                planner shape also the WMMA kernel's time on the same
-                inputs (the kernel it
-                replaced), the GFLOP it multiplies, and its schedule
+                planner shape the GFLOP it multiplies and its schedule
                 (tiles, k-steps, blocks in clusters of two, waves, fill,
-                workspace); the cell is also timed at B = 16, 200 and 400;
+                workspace); the cell is also timed at B = 16, 200 and 400,
+                and at g_dims 252 and 100 and at 13/20 (B = 100): the call
+                with its staging copies in turns with the kernel alone on
+                staged inputs, the copies alone, the plain version, cuDNN's
+                gate conv and the bound;
                 the float32 kernel (launches: the float32 plans of phase
                 6) at B = 16, 100, 200 and 400 (256 channels, k = 5 and 3)
                 and at det's shapes (B = 100, 260 channels in padded
@@ -82,8 +89,9 @@ Phases, each of which raises on failure:
                 and 400 (k = 5 and 3), and for rows of a B = 100 launch
                 placed at offsets 0 and 100 of B = 200 launches and 0, 100,
                 200 and 300 of B = 400 launches, at 256 channels and at
-                det's 260 (padded views, NaN pad lanes; the WMMA
-                and float32 kernels too, at small shapes); one request
+                det's 260 (padded views, NaN pad lanes; the wgmma/TMA
+                kernel at 13/20 in padded views and staged, and the float32
+                kernel, at small shapes); one request
                 planned 3 times gives one plan, and get_action_batched of
                 R = 2, 3 (padded to 4) and 4 requests equals their single
                 plans bit for bit; a batched plan of 4 requests launches
@@ -104,16 +112,15 @@ Phases, each of which raises on failure:
                 model; for each, one warm-up and three timed plans, finite
                 and shaped, launching the cell 160 times through sm90 (a,
                 b), 0 times (c) or 80 times through sm90 (d, 260 channels
-                in padded views; no WMMA launch), and the mask kernel 10
+                in padded views, read in place), and the mask kernel 10
                 times; a profiled plan (device time; for (b) the blur's
                 share of it, the blur timed by CUDA events, beside a
                 255-tap cuDNN depthwise convolution of the same sums); the
                 sm90 cell against its plain version at det's shapes (B=16,
                 100, 200 and 400, 6x8, Cx=C=260, k=5 and 3; pad lanes of
                 x, h and c NaN, one sm90 launch each, finite outputs), and
-                det's row of the kernels line: the sm90 kernel, the WMMA
-                kernel by name on contiguous copies, the plain version and
-                cuDNN's gate conv, timed in turns beside the bound;
+                det's row of the kernels line: the sm90 kernel, the plain
+                version and cuDNN's gate conv, beside the bound;
                 GPU-vs-CPU parity of small float32 plans (a, c, d) and
                 rollout costs (all four; the blur's within one 1/255 step a
                 pixel on another step); each variant's batched plans (R =
@@ -322,12 +329,21 @@ Phases, each of which raises on failure:
                 plan at the canonical config equal to the unsharded plan
                 bit for bit in bf16 (launches counted: 160 cells through
                 sm90, 10 masks) and in int8.
+ 20. widths     models whose g_dim is not a multiple of 8: a small
+                float32 plan at g_dim 12 on the card equal to the CPU's
+                (1e-4); the same plan in bf16, every cell through sm90 with
+                each stack's first x staged, every recorded cell held to
+                its plain version (1e-2), its difference from the CPU's bf16
+                plan printed; the canonical planner at g_dim 252: 160 sm90
+                cells a plan and no other cell kernel, the inputs staged a
+                plan, latency, and one profiled plan beside one of phase
+                6's g_dim 256 planner (device time, the cells' part).
 
 Prints the card line, one JSON line each of the train, serve, variants,
-data, robots, families, sim, experiments, raw, int8 and mesh phases and
-one of kernels
-(the mask kernel, the sm90 cell at the planner's shapes and at det's, the
-WMMA kernel and the float32 kernel, each with its launches on its own path,
+data, robots, families, sim, experiments, raw, int8, mesh and widths
+phases and one of kernels
+(the mask kernel, the sm90 cell at the planner's shapes, at the staged
+widths and at det's, and the float32 kernel, each with its launches on its own path,
 and the mask kernel at the raw route's 64x85), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -502,7 +518,14 @@ DET_CELLS = [(100, 6, 8, 260, 260, 5), (100, 6, 8, 260, 260, 3)]
 # det planned for two and four requests together (B = 2 x 100 and 4 x 100)
 # and the det trainer's eval epoch (B = 16)
 DET_SERVE_CELLS = [(B, 6, 8, 260, 260, k) for B in (16, 200, 400) for k in (5, 3)]
-WMMA_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell.cu"
+# widths that are not multiples of 8 (the retired WMMA kernel took them before),
+# at the planner's B = 100: a model of g_dim 252 or 100 steps its first
+# cell on a contiguous x (a *_in convolution's output, staged) and the
+# padded h and c of lstm.zero_state ("model" layout); 13/20 (odd Cx) on
+# contiguous tensors, all three staged
+STAGED_CELLS = ([((100, 6, 8, C, C, k), "model")
+                 for C in (252, 100) for k in (5, 3)]
+                + [((100, 6, 8, 13, 20, k), "contiguous") for k in (5, 3)])
 F32_SRC = "robot_aware_control_tpu_torch/csrc/conv_lstm_cell_f32.cu"
 
 
@@ -585,73 +608,81 @@ def cell_err(got, want, tol):
     return err
 
 
+def laid_out(args, layout):
+    """The cell's inputs in `layout`: "contiguous" as made, "padded"
+    (`det_layout`: x, h and c as views of padded buffers, NaN pad lanes),
+    "model" x contiguous and h, c such views (lstm.zero_state's)."""
+    if layout == "contiguous":
+        return args
+    padded = det_layout(*args)
+    return padded if layout == "padded" else [args[0]] + padded[1:]
+
+
+def one_launch(fn, path):
+    """fn() with the cell counts read around it: raises unless it made one
+    cell launch, through the kernel of `path` ("sm90" or "f32"), and no
+    other. Returns (fn's result, the inputs staged)."""
+    before, staged = dict(kernels.launches), kernels.staged["inputs"]
+    got = fn()
+    launched = [kernels.launches[n] - before[n] for n in
+                ("conv_lstm_cell", "conv_lstm_cell_sm90", "conv_lstm_cell_f32")]
+    if launched != [1, int(path == "sm90"), int(path == "f32")]:
+        raise AssertionError(f"{path} expected, launched {launched}")
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError(f"{path}: non-finite outputs")
+    return got, kernels.staged["inputs"] - staged
+
+
 def check_cells(dev):
-    """Max |kernel - plain| by (shape, path). Paths: "sm90" (wgmma/TMA, the
-    planner's), "wmma" (the kernel it replaced, called by name), "f32"."""
+    """Max |kernel - plain| by (shape, path): every bf16 cell through the
+    wgmma/TMA kernel ("sm90"), read in place or staged
+    (kernels.stage_cell), every float32 cell through the float32 kernel
+    ("f32"), one launch each."""
     errs = {}
-    # the planner's two cells, the trainer's eval cells, then odd shapes:
-    # 24/40 channels take the wgmma/TMA kernel in bf16 (a partial channel
-    # tile, a 5x7 map), 13/20 the WMMA kernel's element-wise loads; det's
-    # 260 and 258 channels, contiguous (bf16: the WMMA kernel) and in det's
-    # layout (bf16: the wgmma/TMA kernel on its packed weights; 13/20
-    # padded still the WMMA kernel, Cx odd); float32
-    # cells of every shape take the float32 kernel, in either layout
-    shapes = PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS + [
-        (3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3), (4, 6, 8, 260, 260, 5),
-        (4, 6, 8, 258, 258, 3)]
-    # 260 channels on a 262-channel pixel stride, not a multiple of 8: the
-    # WMMA kernel, reading the views in place
+    # the planner's two cells, the trainer's eval cells, the served cells;
+    # then odd shapes: 24/40 (a partial channel tile, a 5x7 map), 13/20
+    # (odd Cx, 26- and 40-byte rows), odd C 13/21, det's 260 and 258,
+    # contiguous (bf16: staged) and in padded views with NaN pad lanes (read
+    # in place), and the model widths 252 and 100 at B = 100 in the model's
+    # layout too; float32 cells of every shape take the float32 kernel
+    shapes = [(s, "contiguous") for s in
+              PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS + [
+                  (3, 5, 7, 24, 40, 5), (2, 6, 8, 13, 20, 3), (2, 6, 8, 13, 21, 3),
+                  (4, 6, 8, 260, 260, 5), (4, 6, 8, 258, 258, 3)]]
+    shapes += [(s, "padded") for s, _ in shapes if s[4] % 8]
+    shapes += [(s, layout) for s, layout in STAGED_CELLS if layout == "model"]
+    tol = CELL_TOL[torch.bfloat16]
+    # 260 channels on a 262-channel pixel stride (not a multiple of 8) and
+    # 16 channels with x one element off a 16-byte boundary: staged
     x, h, c, w, b = cell_inputs(2, 6, 8, 260, 260, 3, torch.bfloat16, dev, 3)
     views = [torch.full((2, 6, 8, 262), float("nan"), dtype=t.dtype,
                         device=dev)[..., :260].copy_(t) for t in (x, h, c)]
-    before = dict(kernels.launches)
-    got = kernels.conv_lstm_cell(*views, w, b)
-    if (kernels.launches["conv_lstm_cell"] - before["conv_lstm_cell"] != 1
-            or kernels.launches["conv_lstm_cell_sm90"]
-            != before["conv_lstm_cell_sm90"]):
-        raise AssertionError("a 262-channel pixel stride did not take WMMA")
-    tol = CELL_TOL[torch.bfloat16]
-    err = errs[("ld262", "wmma")] = cell_err(
-        got, kernels.conv_lstm_cell_plain(x, h, c, w, b), tol)
-    print(f"cell B,H,W,Cx,C,k=(2, 6, 8, 260, 260, 3) on a 262-channel pixel "
-          f"stride, bf16 wmma: max |kernel - plain| = {err:.3g} (tolerance "
-          f"{tol} abs + rel)")
-    for shape in shapes:
+    small = cell_inputs(2, 6, 8, 16, 16, 3, torch.bfloat16, dev, 4)
+    off = small[0]
+    off = torch.empty(off.numel() + 1, dtype=off.dtype, device=dev)[1:].view(
+        off.shape).copy_(off)
+    for name, ins, raw in (("ld262", views + [w, b], (x, h, c, w, b)),
+                           ("misaligned x", [off] + small[1:], small)):
+        got, staged = one_launch(lambda: kernels.conv_lstm_cell(*ins), "sm90")
+        err = errs[(name, "sm90")] = cell_err(
+            got, kernels.conv_lstm_cell_plain(*raw), tol)
+        print(f"cell {name} B,H,W,Cx,C,k={tuple(raw[0].shape[:3])} + "
+              f"{raw[0].shape[-1]}, {raw[1].shape[-1]}, {raw[3].shape[0]} bf16 "
+              f"sm90 ({staged} inputs staged): max |kernel - plain| = "
+              f"{err:.3g} (tolerance {tol} abs + rel)")
+    for shape, layout in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             args = cell_inputs(*shape, dtype, dev, seed=sum(shape))
             want = kernels.conv_lstm_cell_plain(*args)
+            ins = laid_out(args, layout)
+            path = "sm90" if dtype == torch.bfloat16 else "f32"
+            got, staged = one_launch(lambda: kernels.conv_lstm_cell(*ins), path)
             tol = CELL_TOL[dtype]
-            layouts = {"": args}
-            if shape[4] % 8:
-                layouts[" padded"] = det_layout(*args)
-            for layout, ins in layouts.items():
-                sm90 = kernels.takes_sm90(*ins[:4])
-                if dtype == torch.bfloat16 and sm90 != (
-                        shape in PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS
-                        or shape[3] == 24 or bool(layout) and shape[3] % 2 == 0):
-                    raise AssertionError(f"{shape}{layout} bf16: sm90 {sm90}")
-                runs = {"sm90" if sm90 else "wmma" if dtype == torch.bfloat16
-                        else "f32": kernels.conv_lstm_cell}
-                if sm90 and shape not in SERVE_CELLS:
-                    runs["wmma"] = kernels.conv_lstm_cell_wmma
-                for path, fn in runs.items():
-                    before = dict(kernels.launches)
-                    got = fn(*ins)
-                    launched = [kernels.launches[n] - before[n] for n in
-                                ("conv_lstm_cell", "conv_lstm_cell_sm90",
-                                 "conv_lstm_cell_f32")]
-                    if launched != [1, int(path == "sm90"), int(path == "f32")]:
-                        raise AssertionError(
-                            f"{shape}{layout} {dtype}: {path} expected, "
-                            f"launched {launched}")
-                    if not all(bool(torch.isfinite(t).all()) for t in got):
-                        raise AssertionError(f"{shape}{layout} {dtype} {path}: "
-                                             "non-finite outputs")
-                    err = errs[(shape + (layout,) if layout else shape,
-                                path)] = cell_err(got, want, tol)
-                    print(f"cell B,H,W,Cx,C,k={shape}{layout} {dtype} {path}: "
-                          f"max |kernel - plain| = {err:.3g} (tolerance {tol} "
-                          "abs + rel)")
+            key = shape if layout == "contiguous" else shape + (f" {layout}",)
+            err = errs[(key, path)] = cell_err(got, want, tol)
+            print(f"cell B,H,W,Cx,C,k={shape} {layout} {dtype} {path} "
+                  f"({staged} inputs staged): max |kernel - plain| = "
+                  f"{err:.3g} (tolerance {tol} abs + rel)")
     return errs
 
 
@@ -673,12 +704,13 @@ def check_small_plan_parity():
         raise AssertionError("GPU plan differs from CPU plan")
 
 
-def canonical_plans(n_timed: int = 3, compute_dtype: str = "bfloat16"):
-    """The canonical planner in `compute_dtype`: one warm-up and n_timed
-    timed plans, each finite, shaped and launching `plan_launches` (160
-    cells, all through sm90 in bf16 and all through the float32 kernel in
-    float32, and 10 masks); the counts are zeroed just before them."""
-    cfg = Config(**dict(CANONICAL, compute_dtype=compute_dtype))
+def canonical_plans(n_timed: int = 3, compute_dtype: str = "bfloat16",
+                    g_dim: int = 256):
+    """The canonical planner at `g_dim` in `compute_dtype`: one warm-up and
+    n_timed timed plans, each finite, shaped and launching `plan_launches`
+    (160 cells, all through sm90 in bf16 and all through the float32 kernel
+    in float32, and 10 masks); the counts are zeroed just before them."""
+    cfg = Config(**dict(CANONICAL, compute_dtype=compute_dtype, g_dim=g_dim))
     model = svg.init(cfg, seed=0, device="cuda")
     policy = CEMPolicy(cfg, model)
     start, goal = start_goal(np.random.RandomState(0))
@@ -700,10 +732,11 @@ def canonical_plans(n_timed: int = 3, compute_dtype: str = "bfloat16"):
             raise AssertionError(f"bad plan {plan!r}")
     launches = dict(kernels.launches)
     rollouts = cfg.opt_iter * cfg.action_candidates
-    print(f"{compute_dtype} plan seconds: "
+    label = compute_dtype + ("" if g_dim == 256 else f" g_dim {g_dim}")
+    print(f"{label} plan seconds: "
           + ", ".join(f"{s:.4f}" for s in seconds))
     latency = float(np.median(seconds))
-    print(f"{compute_dtype} plan latency {np.median(seconds):.4f} s (median of {n_timed}), "
+    print(f"{label} plan latency {np.median(seconds):.4f} s (median of {n_timed}), "
           f"{rollouts / np.median(seconds):.1f} rollouts/s "
           f"({cfg.opt_iter} iterations x {cfg.action_candidates} candidates, "
           f"horizon {cfg.horizon}); kernel launches per plan {want}")
@@ -937,39 +970,25 @@ def ptxas_info(lib: str) -> str:
 
 def time_cell(dev, launches, errs):
     """The planner launches cell0 (k=5) and cell1 (k=3) equally often, so
-    the per-launch numbers are the mean of the two shapes. The WMMA kernel
-    the planner took before runs on the same inputs in the same call. The
-    trainer's eval shapes (B = 16) and those of 2 and 4 requests planned
-    together (B = 200 and 400) are timed and reported apart."""
+    the per-launch numbers are the mean of the two shapes. The trainer's
+    eval shapes (B = 16) and those of 2 and 4 requests planned together
+    (B = 200 and 400) are timed and reported apart, and so are the widths
+    that are not multiples of 8 (`time_staged_cells`)."""
     rows = []
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape in PLANNER_CELLS + EVAL_CELLS + SERVE_CELLS:
         B, H, W, Cx, C, k = shape
         x, h, c, w, b = cell_inputs(B, H, W, Cx, C, k, torch.bfloat16, dev, 7)
         run = lambda fn: (lambda: fn(x, h, c, w, b))
-        ms = [cuda_ms(run(kernels.conv_lstm_cell)) for _ in range(2)]
-        wmma = []
-        if shape in PLANNER_CELLS:  # turns: WMMA, wgmma, WMMA
-            wmma = [cuda_ms(run(kernels.conv_lstm_cell_wmma)),
-                    cuda_ms(run(kernels.conv_lstm_cell)),
-                    cuda_ms(run(kernels.conv_lstm_cell_wmma))]
-            ms.append(wmma.pop(1))
+        ms = [cuda_ms(run(kernels.conv_lstm_cell)) for _ in range(3)]
         plain = cuda_ms(run(kernels.conv_lstm_cell_plain))
-        xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)  # channels-last NCHW
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        lib = cuda_ms(lambda: F.conv2d(xh, w_oihw, b.to(torch.bfloat16),
-                                       padding=k // 2))
-        ops = 2.0 * B * valid_taps(H, W, k) * (Cx + C) * 4 * C
-        nbytes = 2 * (x.numel() + h.numel() + c.numel() + w.numel()
-                      + 2 * h.numel()) + 4 * b.numel()
-        bound, by = bound_ms(ops, PEAK_BF16, nbytes)
+        lib = gate_conv_ms(x, h, w, b)
+        ops, (bound, by) = cell_bound(x, h, c, w, b, PEAK_BF16)
         s = kernels.sm90_schedule(B, H, W, Cx, C, k, dev)
         multiplied = s["steps"] * 2.0 * 128 * 256 * 64
         per_block = -(-s["steps"] // s["grid"])
         row = dict(B=B, k=k, ms=float(np.mean(ms)), ms_runs=ms,
-                   wmma_ms=float(np.mean(wmma)) if wmma else None,
-                   wmma_ms_runs=wmma, plain_ms=plain, library_ms=lib,
+                   plain_ms=plain, library_ms=lib,
                    bound_ms=bound, bound_by=by, gflop=ops / 1e9,
                    gflop_multiplied=multiplied / 1e9,
                    gflop_dense=2.0 * B * H * W * k * k * (Cx + C) * 4 * C / 1e9,
@@ -980,9 +999,7 @@ def time_cell(dev, launches, errs):
         rows.append(row)
         print(f"cell B={B} k={k} bf16: wgmma/TMA kernel {row['ms']:.4f} ms "
               f"({', '.join(f'{v:.4f}' for v in ms)}), "
-              + (f"WMMA kernel {row['wmma_ms']:.4f} ms "
-                 f"({', '.join(f'{v:.4f}' for v in wmma)}), " if wmma else "")
-              + f"plain {plain:.4f} ms, cuDNN gate conv {lib:.4f} ms, bound "
+              f"plain {plain:.4f} ms, cuDNN gate conv {lib:.4f} ms, bound "
               f"{bound:.4f} ms ({by}, {row['gflop']:.1f} GFLOP without the "
               f"zero border, {row['gflop_dense']:.1f} dense, "
               f"{row['gflop_multiplied']:.1f} multiplied = "
@@ -992,7 +1009,6 @@ def time_cell(dev, launches, errs):
               f"{s['slots']} workspace slots of 128 KB")
     ptxas = ptxas_info("conv_lstm_cell_sm90")
     print("ptxas, wgmma/TMA kernel: " + ptxas)
-    print("ptxas, conv_lstm_cell.cu: " + ptxas_info("conv_lstm_cell"))
     n = len(PLANNER_CELLS)
     plan = rows[:n]
     mean = lambda key, rs=plan: sum(r[key] for r in rs) / len(rs)
@@ -1007,10 +1023,57 @@ def time_cell(dev, launches, errs):
                 ms=mean("ms"), plain_ms=mean("plain_ms"),
                 bound_ms=mean("bound_ms"),
                 bound_by=rows[0]["bound_by"], library_ms=mean("library_ms"),
-                wmma_ms=mean("wmma_ms"), ptxas=ptxas, per_shape=rows,
+                ptxas=ptxas, per_shape=rows,
                 eval_shapes=by_b(EVAL_CELLS[0][0]),
                 serve_shapes=[by_b(B) for B in
-                              sorted({shape[0] for shape in SERVE_CELLS})])
+                              sorted({shape[0] for shape in SERVE_CELLS})],
+                staged_shapes=time_staged_cells(dev))
+
+
+def time_staged_cells(dev):
+    """The wgmma/TMA kernel at STAGED_CELLS' widths, each first held to its
+    plain version (one sm90 launch): the call as a model makes it, staging
+    copies included, in turns with the kernel alone on inputs staged
+    beforehand (call, kernel, call, kernel, call); the copies alone (for
+    g_dim 252 the copy of x into its padded view); the plain version,
+    cuDNN's gate conv and the bound (operations without zero-border taps,
+    the bytes of the inputs as the caller holds them)."""
+    rows = []
+    tol = CELL_TOL[torch.bfloat16]
+    for shape, layout in STAGED_CELLS:
+        B, H, W, Cx, C, k = shape
+        raw = cell_inputs(*shape, torch.bfloat16, dev, 7)
+        args = laid_out(raw, layout)
+        got, staged = one_launch(lambda: kernels.conv_lstm_cell(*args), "sm90")
+        err = cell_err(got, kernels.conv_lstm_cell_plain(*raw), tol)
+        xs, hs, cs, wk, cw = kernels.stage_cell(*args[:4])
+        call = lambda: kernels.conv_lstm_cell(*args)
+        alone = lambda: kernels.launch_sm90(shape, xs, hs, cs, wk, cw, args[4])
+        ms, kernel_ms = [cuda_ms(call)], []
+        for _ in range(2):
+            kernel_ms.append(cuda_ms(alone))
+            ms.append(cuda_ms(call))
+        copies = [t for t, s_ in zip(args[:3], (xs, hs, cs)) if t is not s_]
+        stage = cuda_ms(lambda: [
+            kernels.padded_nhwc(*t.shape, device=dev).copy_(t) for t in copies])
+        plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(*args))
+        lib = gate_conv_ms(*raw[:2], raw[3], raw[4])
+        ops, (bound, by) = cell_bound(*raw, PEAK_BF16)
+        row = dict(B=B, k=k, Cx=Cx, C=C, layout=layout, staged=staged,
+                   ms=float(np.mean(ms)), ms_runs=ms,
+                   kernel_ms=float(np.mean(kernel_ms)), kernel_ms_runs=kernel_ms,
+                   stage_ms=stage, plain_ms=plain, library_ms=lib,
+                   bound_ms=bound, bound_by=by, gflop=ops / 1e9, max_abs_err=err)
+        rows.append(row)
+        print(f"cell B={B} k={k} Cx={Cx} C={C} bf16 {layout} ({staged} inputs "
+              f"staged): call {row['ms']:.4f} ms ("
+              + ", ".join(f"{v:.4f}" for v in ms) + f"), kernel alone "
+              f"{row['kernel_ms']:.4f} ms, the staging copies alone "
+              f"{stage:.4f} ms, plain {plain:.4f} ms, cuDNN gate conv "
+              f"{lib:.4f} ms (call {row['ms'] / lib:.3f}x it), bound "
+              f"{bound:.4f} ms ({by}, {row['gflop']:.2f} GFLOP without the "
+              f"zero border), max |kernel - plain| {err:.3g}")
+    return rows
 
 
 # ----------------------------------------------------------------- train
@@ -1313,36 +1376,26 @@ def gate_conv_ms(x, h, w, b):
 
 
 def time_det_cells(dev, launches, errs):
-    """The kernels line's entries for det's cells: the wgmma/TMA kernel in
-    det's layout (padded views), and the WMMA kernel of
-    csrc/conv_lstm_cell.cu, which det's plans took before, called by name
-    on contiguous copies of the same inputs. At det's two plan shapes (the
-    mean of the two, as the plan launches each equally often), in turns
-    (sm90, WMMA, sm90, WMMA, sm90), with the plain version's time, cuDNN's
-    gate convolution and the bound (operations at 260 channels without the
-    zero-border taps)."""
+    """The kernels line's entry for det's cells: the wgmma/TMA kernel in
+    det's layout (padded views). At det's two plan shapes (the mean of the
+    two, as the plan launches each equally often), three timings each, with
+    the plain version's time, cuDNN's gate convolution and the bound
+    (operations at 260 channels without the zero-border taps)."""
     rows = []
     for shape in DET_CELLS:
         B, H, W, Cx, C, k = shape
         raw = cell_inputs(B, H, W, Cx, C, k, torch.bfloat16, dev, 7)
         args = det_layout(*raw)
-        if not kernels.takes_sm90(*args[:4]) or kernels.takes_sm90(*raw[:4]):
-            raise AssertionError(f"{shape}: routing by layout failed")
+        if not all(kernels.tma_ready(t) for t in args[:3]):
+            raise AssertionError(f"{shape}: det's layout would be staged")
         sm90 = lambda: kernels.conv_lstm_cell(*args)
-        wmma = lambda: kernels.conv_lstm_cell_wmma(*raw)
-        ms, wmma_ms = [cuda_ms(sm90)], []
-        for _ in range(2):
-            wmma_ms.append(cuda_ms(wmma))
-            ms.append(cuda_ms(sm90))
-        wmma_err = cell_err(wmma(), kernels.conv_lstm_cell_plain(*raw),
-                            CELL_TOL[torch.bfloat16])
+        ms = [cuda_ms(sm90) for _ in range(3)]
         plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(*args))
         lib = gate_conv_ms(*raw[:2], raw[3], raw[4])
         ops, (bound, by) = cell_bound(*raw, PEAK_BF16)
         s = kernels.sm90_schedule(B, H, W, Cx, C, k, dev)
         row = dict(B=B, k=k, Cx=Cx, C=C, ms=float(np.mean(ms)), ms_runs=ms,
-                   wmma_ms=float(np.mean(wmma_ms)), wmma_ms_runs=wmma_ms,
-                   wmma_max_abs_err=wmma_err, plain_ms=plain, library_ms=lib,
+                   plain_ms=plain, library_ms=lib,
                    bound_ms=bound, bound_by=by, gflop=ops / 1e9,
                    gflop_multiplied=2.0 * s["macs"] / 1e9, tail=s["tail"],
                    tiles=s["tiles"], blocks=s["grid"], steps=s["steps"],
@@ -1350,30 +1403,19 @@ def time_det_cells(dev, launches, errs):
         rows.append(row)
         print(f"cell B={B} k={k} Cx=C={C} bf16 (det): wgmma/TMA kernel "
               f"{row['ms']:.4f} ms ({', '.join(f'{v:.4f}' for v in ms)}), "
-              f"WMMA kernel {row['wmma_ms']:.4f} ms ("
-              + ", ".join(f"{v:.4f}" for v in wmma_ms)
-              + f") = {row['wmma_ms'] / row['ms']:.2f}x, plain {plain:.4f} ms, "
+              f"plain {plain:.4f} ms, "
               f"cuDNN gate conv {lib:.4f} ms (kernel {row['ms'] / lib:.3f}x "
               f"it), bound {bound:.4f} ms ({by}, {row['gflop']:.1f} GFLOP "
               f"without the zero border, {row['gflop_multiplied']:.1f} "
               f"multiplied) = {row['ms'] / bound:.2f}x the bound; tail layout "
               f"{s['tail']}, {s['tiles']} tiles, {s['steps']} k-steps")
     mean = lambda key: sum(r[key] for r in rows) / len(rows)
-    common = dict(replaces=CELL_REPLACES, route="cuda",
-                  bound_ms=mean("bound_ms"), bound_by=rows[0]["bound_by"],
-                  library_ms=mean("library_ms"), plain_ms=mean("plain_ms"))
-    sm90_entry = dict(common, name="conv_lstm_cell_sm90_det", source=CELL_SRC,
-                      launches=launches,
-                      max_abs_err=max(r["max_abs_err"] for r in rows),
-                      ms=mean("ms"), wmma_ms=mean("wmma_ms"), per_shape=rows)
-    wmma_entry = dict(common, name="conv_lstm_cell_wmma", source=WMMA_SRC,
-                      launches=0,
-                      max_abs_err=max(r["wmma_max_abs_err"] for r in rows),
-                      ms=mean("wmma_ms"),
-                      per_shape=[dict(B=r["B"], k=r["k"], ms=r["wmma_ms"],
-                                      ms_runs=r["wmma_ms_runs"])
-                                 for r in rows])
-    return sm90_entry, wmma_entry
+    return [dict(name="conv_lstm_cell_sm90_det", source=CELL_SRC,
+                 replaces=CELL_REPLACES, route="cuda", launches=launches,
+                 max_abs_err=max(r["max_abs_err"] for r in rows),
+                 ms=mean("ms"), plain_ms=mean("plain_ms"),
+                 bound_ms=mean("bound_ms"), bound_by=rows[0]["bound_by"],
+                 library_ms=mean("library_ms"), per_shape=rows)]
 
 
 def time_f32_cell(dev, launches, launches_parity):
@@ -1580,8 +1622,7 @@ def check_copy_and_resume():
 
 def check_variants(dev):
     """Phase 11 (see the module docstring). Returns its JSON line's dict
-    and the kernels line's entries for det's cells: the sm90 kernel and the
-    WMMA kernel it replaced there."""
+    and the kernels line's entry for det's cells."""
     out = {"plans": {}}
     det_errs = check_det_cells(dev)
     for name in VARIANTS:
@@ -2028,9 +2069,9 @@ def check_cdna_cells(policy, start, goal, dev):
     rows = []
     for args in calls[2:]:
         x, h, c, w, b = args
-        if not kernels.takes_sm90(x, h, c, w):
+        if not all(kernels.tma_ready(t) for t in (x, h, c)):
             raise AssertionError(f"CDNA cell {tuple(x.shape)} k={w.shape[0]} "
-                                 "does not take sm90")
+                                 "is not read in place")
         before = kernels.launches["conv_lstm_cell_sm90"]
         got = wrapper(*args)
         if kernels.launches["conv_lstm_cell_sm90"] - before != 1:
@@ -2312,11 +2353,9 @@ class KernelInputs:
         out = {"cells": [], "masks": []}
         for key, args in sorted(self.cells.items()):
             B, H, W, Cx, C, k, dt = key
-            if args[0].dtype != torch.bfloat16 or not kernels.takes_sm90(*args[:4]):
-                raise AssertionError(f"{label}: cell {key} did not take sm90")
             tol = CELL_TOL[torch.bfloat16]
-            err = cell_err(kernels.conv_lstm_cell(*args),
-                           kernels.conv_lstm_cell_plain(*args), tol)
+            got, _ = one_launch(lambda: kernels.conv_lstm_cell(*args), "sm90")
+            err = cell_err(got, kernels.conv_lstm_cell_plain(*args), tol)
             x, h, c, w, b = args
             ms = cuda_ms(lambda: kernels.conv_lstm_cell(*args))
             plain = cuda_ms(lambda: kernels.conv_lstm_cell_plain(*args), n=5)
@@ -2987,6 +3026,89 @@ def check_mesh(dev):
     return out
 
 
+# ---------------------------------------------------------------- widths
+def check_widths(dev, policy, start, goal):
+    """Phase 20: models whose g_dim is not a multiple of 8 (their bf16 cells
+    took the retired WMMA kernel before). (a) A small float32 plan at g_dim 12
+    on the card equals the CPU's (PLAN_TOL; its cells on the float32
+    kernel at 12-channel strides). (b) The same plan in bf16 on the card:
+    every cell through sm90, each first cell of a stack with its x staged
+    (a contiguous 12-channel *_in output), every recorded cell held to its
+    plain version; its difference from the CPU's bf16 plan printed, not
+    held (cuDNN's and the CPU's bf16 convolutions round apart, and the
+    top-k may then pick other candidates). (c) The canonical planner at
+    g_dim 252: launches, staging copies and latency of its plans, then one
+    profiled plan beside one of phase 6's g_dim 256 planner (`policy`),
+    device time and the cell kernel's part of each."""
+    out = {}
+    err, launched = small_plan_parity("g_dim 12", dev, fields=dict(g_dim=12))
+    print(f"small f32 plan at g_dim 12, GPU vs CPU: max |diff| = {err:.3g} "
+          f"(tolerance {PLAN_TOL}); launches {launched}")
+    out["f32_g12"] = dict(max_abs_diff=err, launches=launched)
+
+    cfg = Config(**dict(SMALL, g_dim=12, compute_dtype="bfloat16"))
+    noise = np.random.RandomState(2).randn(
+        cfg.opt_iter, cfg.action_candidates, cfg.horizon - 1, 2)
+    small_start, small_goal = start_goal(np.random.RandomState(1))
+    plans, calls, wrapper = {}, [], kernels.conv_lstm_cell
+    for d in ("cpu", "cuda"):
+        model = svg.init(cfg, seed=3, device=d)
+        if d == "cuda":
+            kernels.conv_lstm_cell = lambda *a: calls.append(
+                [t.clone() for t in a]) or wrapper(*a)
+            kernels.reset_launches()
+            staged = kernels.staged["inputs"]
+        try:
+            plans[d] = CEMPolicy(cfg, model, device=d).get_action(
+                small_start, small_goal, noise=noise)
+        finally:
+            kernels.conv_lstm_cell = wrapper
+    launched, staged = dict(kernels.launches), kernels.staged["inputs"] - staged
+    if launched != plan_launches(cfg) or staged != len(calls) // 2:
+        raise AssertionError(f"bf16 g_dim 12 plan launched {launched}, staged "
+                             f"{staged} inputs for {len(calls)} cells")
+    errs = [cell_err(one_launch(lambda: wrapper(*a), "sm90")[0],
+                     kernels.conv_lstm_cell_plain(*a), CELL_TOL[torch.bfloat16])
+            for a in calls]
+    diff = float(np.abs(plans["cuda"] - plans["cpu"]).max())
+    print(f"small bf16 plan at g_dim 12 on the card: launches {launched}, "
+          f"{staged} inputs staged (x of each stack's first cell), every "
+          f"recorded cell vs plain max |diff| {max(errs):.3g} (tolerance "
+          f"{CELL_TOL[torch.bfloat16]}); GPU vs CPU bf16 plan max |diff| "
+          f"{diff:.3g} (not held)")
+    out["bf16_g12"] = dict(launches=launched, staged=staged,
+                           cell_max_abs_err=max(errs), cpu_plan_diff=diff)
+
+    launches, policy252, _, _, latency = canonical_plans(g_dim=252)
+    before = kernels.staged["inputs"]
+    policy252.get_action(start, goal, ep_num=3, step=0)
+    staged = kernels.staged["inputs"] - before
+    profiles = {}
+    for g_dim, pol in ((256, policy), (252, policy252)):
+        prof = profile_plan(lambda: pol.get_action(start, goal, ep_num=2, step=0),
+                            f"g_dim {g_dim} plan")
+        if prof:
+            busy, wall, rows = prof
+            cell = [r for r in rows if "cell_kernel" in r[2]]
+            profiles[g_dim] = dict(
+                busy_ms=busy, wall_ms=wall,
+                cell_ms=sum(r[0] for r in cell), cell_count=sum(r[1] for r in cell))
+    ratio = (profiles[252]["busy_ms"] / profiles[256]["busy_ms"]
+             if len(profiles) == 2 else None)
+    print(f"canonical plan at g_dim 252: launches {launches} over 4 plans "
+          f"(a warm-up, 3 timed), {staged} inputs staged a plan, "
+          f"latency {latency:.4f} s; device busy "
+          + (f"{profiles[252]['busy_ms']:.1f} ms against g_dim 256's "
+             f"{profiles[256]['busy_ms']:.1f} ms ({ratio:.3f}x; cells "
+             f"{profiles[252]['cell_ms']:.1f} ms / {profiles[252]['cell_count']} "
+             f"launches against {profiles[256]['cell_ms']:.1f} ms / "
+             f"{profiles[256]['cell_count']})" if ratio else "not measured"))
+    out["plan_g252"] = dict(launches=launches, staged_per_plan=staged,
+                            latency_s=latency, profiles=profiles,
+                            busy_ratio_252_to_256=ratio)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3173,6 +3295,19 @@ def main() -> int:
     print(f"phases int8 and mesh took {int8['seconds']:.1f} s and "
           f"{mesh['seconds']:.1f} s; the script {mesh['script_seconds']:.1f} s")
     print(json.dumps({"mesh": dict(mesh, card=card)}))
+
+    # g_dims that are not multiples of 8: staged onto the wgmma/TMA kernel
+    t = phase("widths")
+    widths = check_widths(dev, policy, start, goal)
+    widths["seconds"] = time.perf_counter() - t
+    widths["script_seconds"] = time.perf_counter() - t_start
+    cell_entry["launches_g_dim_252_plan"] = widths["plan_g252"]["launches"][
+        "conv_lstm_cell_sm90"]
+    cell_entry["launches_g_dim_12_small_plan"] = widths["bf16_g12"]["launches"][
+        "conv_lstm_cell_sm90"]
+    print(f"phase widths took {widths['seconds']:.1f} s; the script "
+          f"{widths['script_seconds']:.1f} s")
+    print(json.dumps({"widths": dict(widths, card=card)}))
     print(card)
     print(json.dumps({"train": {"card": card, "parity": parity,
                                 "eval_kernel_vs_plain": eval_kernel,

@@ -5,11 +5,12 @@
 // reaches device memory.
 //
 // Replaces: robot_aware_control_tpu/ops/pallas_kernels.py:_fused_cell_fwd
-// (body _conv_lstm_kernel, wrapper fused_conv_lstm_cell) for every bf16 call
-// with even Cx and C whose x, h and c are NHWC with contiguous channels and
-// a pixel stride that is a multiple of 8 elements (TMA's 16-byte strides),
-// with weights whose gate stride is a multiple of 8, on 16-byte aligned
-// tensors. conv_lstm_cell.cu keeps the other shapes.
+// (body _conv_lstm_kernel, wrapper fused_conv_lstm_cell) for every bf16
+// call: any Cx and C, odd ones too. It takes x, h and c as NHWC with
+// contiguous channels and a pixel stride that is a multiple of 8 elements
+// (TMA's 16-byte strides), weights whose gate stride is a multiple of 8, on
+// 16-byte aligned tensors; ops/kernels.py:stage_cell copies whatever a
+// caller holds in another layout into that one first.
 //
 // Bound on an H100 at the planner's shapes (B = 100 candidates, 6x8 maps,
 // Cx = C = 256): cell0 (k = 5) needs 85.6 GFLOP once the taps on the zero
@@ -31,15 +32,16 @@
 //     of 32.
 //   * The halo comes from TMA. x and h are viewed as 4-D maps (C, W, H, B)
 //     whose pixel stride is the caller's (ldx, ldh: a (B, H, W, C) view of a
-//     buffer with round_up(C, 8) channels a pixel is TMA-legal at any even
+//     buffer with round_up(C, 8) channels a pixel is TMA-legal at any
 //     C). An M tile is the pixels of one map row y for a run of batch
 //     entries: 16 entries x 8 columns at W = 8 (columns are rounded up to a
 //     power of two, wbox, and a row wider than 128 is cut into chunks). Tap
 //     (dy, dx) of 64 channels is the box at (c0, x0 + dx - p, y + dy - p,
 //     b0); TMA fills the coordinates outside the tensor with zeros, so the x
 //     border, the batch tail and the channel tail need no code, and the
-//     lanes between C and the pixel stride are never read. x and h are read
-//     one after the other along K: cat(x, h) is never built.
+//     lanes between C and the pixel stride are never read (the map's
+//     innermost extent is Cx or C, odd or not). x and h are read one after
+//     the other along K: cat(x, h) is never built.
 //   * Taps whose row y + dy - p falls outside the map are not multiplied:
 //     24 of the 30 row-taps at k = 5 on 6 rows, 16 of 18 at k = 3. Column
 //     taps on the border are (zeros from TMA: 6 of 40 at W = 8, k = 5), and
@@ -51,10 +53,11 @@
 //     meet zeros in A (or are zero-filled), so they add nothing. TMA starts
 //     a box only on a 16-byte boundary of its innermost dimension (a box at
 //     column 260 of det's weights, byte 520, trapped the kernel), so the
-//     gate stride cw is a multiple of 8: C itself at the planner's 256
-//     channels, and for det's 260 a copy of the weights with each gate's
-//     columns padded to 264, made once per weight version by the model
-//     (ops/lstm.py); the parameters keep their shapes.
+//     gate stride cw is a multiple of 8: C itself where C is one (the
+//     planner's 256 channels), else a copy of the weights whose gates are
+//     padded with zero columns to round_up(C, 64), made once per weight
+//     version by the wrapper (ops/kernels.py:sm90_weights, any C, odd ones
+//     too); the parameters keep their shapes.
 //   * det's tails (conv_lstm_cell_sm90_geom.h, the tail layout). At 260 =
 //     4 x 64 + 4 channels, whole 64-channel tiles for the last 4 channels
 //     of x, of h and of the hidden state would multiply 1.9x a 256-channel
@@ -73,9 +76,11 @@
 //     columns, so the thread holding gate i of a pixel and channel also
 //     holds f, o and g at registers +32, +64, +96. c, h' and c' go straight
 //     between those registers and device memory (at the caller's pixel
-//     strides ldc and ldo); the tile's bias is staged in shared memory once,
-//     and sigmoid and tanh use the approximate exponential and reciprocal
-//     (the precise ones cost 12-16 us a launch).
+//     strides ldc and ldo), two channels a 4-byte access; where C is odd the
+//     pair of its last channel is read and written as one value, so no
+//     lane past C is read or written. The tile's bias is staged in shared
+//     memory once, and sigmoid and tanh use the approximate exponential and
+//     reciprocal (the precise ones cost 12-16 us a launch).
 //   * A result that depends on the inputs alone. A pixel's gates are the
 //     same bits whatever the launch's B, wherever its batch entry sits and
 //     whichever block finishes its tile, so that a CEM plan does not depend
@@ -113,7 +118,7 @@
 //     a stage is freed only when the consumers of both blocks are done with
 //     it (each consumer warp arrives on its own and its peer's barrier).
 //     So a block-step reads 40 KB (8 KB of A, 32 KB of B) for 4.19 MFLOP,
-//     102 FLOP a byte (the WMMA kernel: 64): 1.10 GB per launch at k = 5,
+//     102 FLOP a byte (the retired WMMA kernel: 64): 1.10 GB per launch at k = 5,
 //     0.44 GB at k = 3, against 1.32 / 0.53 GB unshared. Without the
 //     sharing the operands streamed at about 7 TB/s and the products alone
 //     ran a quarter faster than the kernel: it waited on L2. Sharing the
@@ -333,6 +338,19 @@ __device__ __forceinline__ float sigmoid(float v) {
   return r;
 }
 __device__ __forceinline__ float tanh_fast(float v) { return 2.0f * sigmoid(2.0f * v) - 1.0f; }
+
+// channels n and n + 1 of a pixel at p (n even, so p is 4-byte aligned);
+// with !both (n + 1 == C, C odd) only channel n, the other as zero
+__device__ __forceinline__ __nv_bfloat162 load_pair(const __nv_bfloat16* p, bool both) {
+  return both ? *reinterpret_cast<const __nv_bfloat162*>(p)
+              : __halves2bfloat162(*p, __float2bfloat16_rn(0.0f));
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b, bool both) {
+  if (both)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  else
+    *p = __float2bfloat16_rn(a);
+}
 
 // ---------------------------------------------------------------------------
 // the consumers' pieces
@@ -686,8 +704,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           if (pix[hr] < 0 || n >= g.C) continue;
-          const float2 cf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(c + pix[hr] * ldc + n));
+          const bool both = n + 1 < g.C;
+          const float2 cf = __bfloat1622float2(load_pair(c + pix[hr] * ldc + n, both));
           float hn[2], cn[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -700,8 +718,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
             hn[e] = go * tanh_fast(cn[e]);
           }
           const long long o = pix[hr] * ldo + n;
-          *reinterpret_cast<__nv_bfloat162*>(h_out + o) = __floats2bfloat162_rn(hn[0], hn[1]);
-          *reinterpret_cast<__nv_bfloat162*>(c_out + o) = __floats2bfloat162_rn(cn[0], cn[1]);
+          store_pair(h_out + o, hn[0], hn[1], both);
+          store_pair(c_out + o, cn[0], cn[1], both);
         }
       }
       // All loads of c are issued before the arithmetic.
@@ -711,10 +729,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int jg = 0; jg < 8; ++jg) {
           const int n = nt * BN + jg * 8 + 2 * (lane % 4);
-          // C is even: n + 1 < C as well
-          cv[hr][jg] = pix[hr] >= 0 && n < g.C
-                           ? *reinterpret_cast<const __nv_bfloat162*>(c + pix[hr] * ldc + n)
-                           : __floats2bfloat162_rn(0.0f, 0.0f);
+          cv[hr][jg] = pix[hr] >= 0 && n < g.C ? load_pair(c + pix[hr] * ldc + n, n + 1 < g.C)
+                                                : __floats2bfloat162_rn(0.0f, 0.0f);
         }
       }
 #pragma unroll
@@ -737,8 +753,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
             hn[e] = go * tanh_fast(cn[e]);
           }
           const long long o = pix[hr] * ldo + n;
-          *reinterpret_cast<__nv_bfloat162*>(h_out + o) = __floats2bfloat162_rn(hn[0], hn[1]);
-          *reinterpret_cast<__nv_bfloat162*>(c_out + o) = __floats2bfloat162_rn(cn[0], cn[1]);
+          store_pair(h_out + o, hn[0], hn[1], n + 1 < g.C);
+          store_pair(c_out + o, cn[0], cn[1], n + 1 < g.C);
         }
       }
       consumer_sync();  // s_bias is read before the next tile writes it
@@ -858,15 +874,15 @@ extern "C" int conv_lstm_cell_sm90_schedule(int B, int H, int W, int Cx, int C, 
 // of 8: TMA starts a box on a 16-byte boundary; cw = C where C is one, else
 // the zero-padded copy of ops/kernels.py:pack_gate_weights), bias (4C,)
 // float32, outputs (B, H, W, C) bf16 at pixel stride ldo (a multiple of 8);
-// Cx and C even and x, h, c, w 16-byte aligned. Returns the
-// cudaError_t of the launch (0 on success).
+// any Cx and C, and x, h, c, w 16-byte aligned. Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int conv_lstm_cell_sm90(const void* x, const void* h, const void* c, const void* w,
                                    const void* b, void* h_out, void* c_out, void* ws,
                                    void* counters, int B, int H, int W, int Cx, int C, int k,
                                    int ldx, int ldh, int ldc, int ldo, int cw, int tcol,
                                    void* stream) {
   if (B * H * W == 0) return 0;
-  if (k > kMaxPieces || Cx % 2 || C % 2 || ldx % 8 || ldh % 8 || ldc % 8 || ldo % 8 ||
+  if (k > kMaxPieces || ldx % 8 || ldh % 8 || ldc % 8 || ldo % 8 ||
       cw % 8 || ldx < Cx || ldh < C || ldc < C || ldo < C || cw < C ||
       (tcol >= 0 && tcol != 4 * cw))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -6,7 +6,7 @@
 // schedule can be walked on a CPU (tests/test_torch_port_sm90_schedule.py).
 //
 // Two layouts of the work:
-//   * general (any even Cx and C): a tap takes ceil(Cx / 64) + ceil(C / 64)
+//   * general (any Cx and C): a tap takes ceil(Cx / 64) + ceil(C / 64)
 //     k-steps of 64 channels, and hidden channels go in 64-channel tiles,
 //     two to a cluster; TMA's zero fill covers a partial last chunk or tile.
 //   * tail (det's 260 or 258 channels: 64 nx + rx input channels of x with

@@ -11,9 +11,10 @@ g_dim 256 (258 without the state maps): not a multiple of 8, so a
 contiguous (B, H, W, 260) bf16 tensor has 520-byte pixel rows, which TMA
 cannot describe. The cell input and the carries are therefore views of
 buffers padded to a multiple of 8 channels a pixel (kernels.padded_nhwc;
-the lanes past 260 are never read), and the cells take the wgmma/TMA
-kernel (ops/kernels.py:takes_sm90) with the parameters' shapes unchanged.
-Public shapes stay (B, H, W, 260); only strides differ.
+the lanes past 260 are never read), and the wgmma/TMA kernel reads them
+in place (ops/kernels.py:tma_ready; a contiguous input would be copied
+into such a view first) with the parameters' shapes unchanged. Public
+shapes stay (B, H, W, 260); only strides differ.
 """
 
 from __future__ import annotations

@@ -6,23 +6,22 @@ Two kernels replace the JAX package's two Pallas kernels
   * `capsule_mask_render`  (csrc/capsule_mask.cu): segment parameters
     (M, S, 6) -> robot masks (M, h, w) in {0, 1};
   * `conv_lstm_cell`: one ConvLSTM cell, gates accumulated in float32,
-    outputs in the input's type. x, h and c are NHWC with contiguous
-    channels and may be views of a buffer with more channels a pixel
-    (`padded_nhwc`): every kernel reads them at their pixel stride, and h'
-    and c' come back in h's layout. bf16 cells with even channel counts
-    whose pixel strides are multiples of 8 elements, on 16-byte aligned
-    tensors (the planner's, and det's 260 channels in padded views), take
-    the wgmma/TMA kernel of csrc/conv_lstm_cell_sm90.cu (`takes_sm90`);
-    other bf16 cells the WMMA kernel of csrc/conv_lstm_cell.cu. Every
-    float32 cell takes the CUDA-core kernel of csrc/conv_lstm_cell_f32.cu
-    (FFMA, no TF32; its tile shape chosen per launch, `f32_schedule`).
-    Every path takes the weights as (k, k, Cx + C, 4C); the wrapper gives
-    the wgmma/TMA kernel alone a gate-packed copy where C is not a
-    multiple of 8 (`sm90_weights`). The path depends only on dtype, shape,
-    strides and alignment, and each kernel's result for a batch entry
-    depends on that entry's inputs alone: not on B, not on where the entry
-    sits in the batch, not on the order in which blocks finish (the
-    planner's batched and single plans rely on it, planning/cem.py).
+    outputs in the input's type. Every bf16 cell takes the wgmma/TMA
+    kernel of csrc/conv_lstm_cell_sm90.cu, every float32 cell the
+    CUDA-core kernel of csrc/conv_lstm_cell_f32.cu (FFMA, no TF32; its
+    tile shape chosen per launch, `f32_schedule`). The kernels read x, h
+    and c as NHWC with contiguous channels at their pixel stride (views of
+    padded buffers, `padded_nhwc`, are read in place) and write h' and c'
+    in the layout in which they read h. What the wgmma/TMA kernel cannot
+    read in place the wrapper stages first (`stage_cell`): x, h or c whose
+    pixel stride is not a multiple of 8 elements, or whose pointer is not
+    16-byte aligned, is copied into a `padded_nhwc` view, and the weights
+    (k, k, Cx + C, 4C) into a gate-packed copy where C is not a multiple of
+    8 (`sm90_weights`). The route depends only on dtype, and each kernel's
+    result for a batch entry depends on that entry's inputs alone: not on
+    B, not on where the entry sits in the batch, not on the order in which
+    blocks finish (the planner's batched and single plans rely on it,
+    planning/cem.py).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback from one to the
@@ -80,7 +79,6 @@ SOURCES = {
         f"-DMASK_MARGIN_PX={MASK_MARGIN_PX.hex()}f",
         f"-DMASK_MARGIN_REL={MASK_MARGIN_REL.hex()}f",
         f"-DMASK_MAX_MAGNITUDE={MASK_MAX_MAGNITUDE.hex()}f"]),
-    "conv_lstm_cell": ("conv_lstm_cell.cu", ["-Xptxas", "-v"]),
     "conv_lstm_cell_sm90": ("conv_lstm_cell_sm90.cu", ["-Xptxas", "-v"]),
     "conv_lstm_cell_f32": ("conv_lstm_cell_f32.cu", ["-Xptxas", "-v"]),
 }
@@ -90,6 +88,9 @@ SOURCES = {
 # float32 kernel
 launches = {"capsule_mask_render": 0, "conv_lstm_cell": 0,
             "conv_lstm_cell_sm90": 0, "conv_lstm_cell_f32": 0}
+# inputs of CUDA cells that `stage_cell` copied before the launch (x, h or
+# c into a padded view; not the weights' packed copy, made once a version)
+staged = {"inputs": 0}
 # library name -> compiler output and seconds of the build in this process
 build_log: dict = {}
 
@@ -165,14 +166,11 @@ def bind(name: str, lib):
         # weights' gate stride and tail block column, the stream
         fns = [(lib.conv_lstm_cell_sm90, [ptr] * 9 + [i] * 12 + [ptr]),
                (lib.conv_lstm_cell_sm90_schedule, [i] * 7 + [ptr])]
-    elif name == "conv_lstm_cell_f32":
+    else:
         # pointers, B, H, W, Cx, C, k, the four pixel strides, the tile
         # shape, the stream
         fns = [(lib.conv_lstm_cell_f32, [ptr] * 7 + [i] * 11 + [ptr]),
                (lib.conv_lstm_cell_f32_schedule, [i] * 6 + [ptr])]
-    else:
-        # pointers, B, H, W, Cx, C, k, the four pixel strides, the stream
-        fns = [(lib.conv_lstm_cell_bf16, [ptr] * 7 + [i] * 10 + [ptr])]
     for fn, types in fns:
         fn.argtypes = types
         fn.restype = i
@@ -348,27 +346,35 @@ _sm90_packed = WeakIdKeyDictionary()
 
 def sm90_weights(w: torch.Tensor, C: int):
     """The weights as the wgmma/TMA kernel takes them and their gate
-    stride: w and C where C is a multiple of 8, else `pack_gate_weights`'s
-    copy (made once per version of w) and round_up(C, 64). Only that kernel
-    reads the copy; every other path takes w (k, k, Cin, 4C)."""
-    if C % 8 == 0:
+    stride: w and C where C is a multiple of 8 and w is 16-byte aligned;
+    else a copy made once per version of w: `pack_gate_weights`' (any C
+    not a multiple of 8, odd C too) and round_up(C, 64), or, for a
+    misaligned w of such a C, an aligned clone and C. An inference tensor
+    has no version to key the copy by: it gets a copy per call. Only that
+    kernel reads the copy; every other path takes w (k, k, Cin, 4C)."""
+    if C % 8 == 0 and w.data_ptr() % 16 == 0:
         return w, C
+    copy = ((lambda: w.clone()) if C % 8 == 0
+            else (lambda: pack_gate_weights(w, C)))
+    cw = C if C % 8 == 0 else round_up(C, 64)
+    if w.is_inference():
+        return copy(), cw
     stamp = (w._version, w.data_ptr())
     hit = _sm90_packed.get(w)
     if hit is None or hit[0] != stamp:
         # a plain tensor even when a planner runs under inference_mode
         with torch.inference_mode(False), torch.no_grad():
-            hit = (stamp, pack_gate_weights(w, C))
+            hit = (stamp, copy())
         _sm90_packed[w] = hit
-    return hit[1], round_up(C, 64)
+    return hit[1], cw
 
 
 def padded_nhwc(B, H, W, C, dtype=torch.bfloat16, device=None,
                 zero: bool = False) -> torch.Tensor:
     """A (B, H, W, C) tensor that is a view of a (B, H, W, round_up(C, 8))
     buffer: its pixel stride is a multiple of 8 elements (16 bytes in bf16),
-    which TMA needs, so a bf16 cell of any even channel count on such views
-    takes the wgmma/TMA kernel. The lanes past C are never read by the cell
+    which TMA needs, so the wgmma/TMA cell kernel reads such views of any
+    channel count in place. The lanes past C are never read by the cell
     kernels; `zero` zeroes the buffer, else it is uninitialised."""
     make = torch.zeros if zero else torch.empty
     return make(B, H, W, round_up(C), dtype=dtype, device=device)[..., :C]
@@ -423,25 +429,40 @@ def _check_cuda_cell(x, h, c, w, b):
     _check(b.dtype == torch.float32, "b must be float32")
     _check(w.is_contiguous() and b.is_contiguous(),
            "w and b must be contiguous")
-    _check(all(pixel_stride(t) is not None for t in (x, h, c)),
-           "x, h and c must be NHWC with contiguous channels and B, H, W "
-           "dense above them (contiguous, or views of padded buffers)")
-    _check(all(t.shape[0] * t.stride(0) < 2 ** 31 for t in (x, h, c))
-           and w.numel() < 2 ** 31, "inputs too large for 32-bit indexing")
 
 
-def takes_sm90(x, h, c, w) -> bool:
-    """Whether a CUDA cell takes the wgmma/TMA kernel: bf16, even channel
-    counts, x, h and c NHWC with contiguous channels, B, H, W dense above
-    them and pixel strides that are multiples of 8 elements (TMA's 16-byte
-    strides), and 16-byte aligned tensors. A contiguous cell of 260
-    channels does not qualify (520-byte rows); the same cell on views of
-    264-channel buffers (`padded_nhwc`) does."""
-    lds = [pixel_stride(t) for t in (x, h, c)]
-    return (x.dtype == torch.bfloat16 and x.shape[-1] % 2 == 0
-            and h.shape[-1] % 2 == 0
-            and all(ld is not None and ld % 8 == 0 for ld in lds)
-            and all(t.data_ptr() % 16 == 0 for t in (x, h, c, w)))
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the wgmma/TMA kernel reads x, h or c in place: NHWC with
+    contiguous channels and B, H, W dense above them, a pixel stride that
+    is a multiple of 8 elements (TMA's 16-byte strides) and a 16-byte
+    aligned pointer. A contiguous cell of 260 or 252 channels is not;
+    the same cell on views of padded buffers (`padded_nhwc`) is."""
+    ld = pixel_stride(t)
+    return ld is not None and ld % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def _stage(t: torch.Tensor, ready) -> torch.Tensor:
+    if ready(t):
+        return t
+    staged["inputs"] += t.is_cuda
+    return padded_nhwc(*t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def stage_cell(x, h, c, w):
+    """A cell's inputs as the CUDA kernel of their type reads them:
+    (x, h, c, weights, gate stride). bf16 (the wgmma/TMA kernel): x, h and
+    c themselves where `tma_ready`, else copies into `padded_nhwc` views
+    (their pad lanes uninitialised: the kernel never reads them), and
+    `sm90_weights`. float32: x, h and c themselves where their pixel
+    stride is defined, else such copies, and w with C. Takes CPU tensors
+    too (the CPU tests check the contract there); only copies of CUDA
+    tensors are counted in `staged`."""
+    C = h.shape[-1]
+    if x.dtype == torch.bfloat16:
+        ready, (wk, cw) = tma_ready, sm90_weights(w, C)
+    else:
+        ready, wk, cw = (lambda t: pixel_stride(t) is not None), w, C
+    return _stage(x, ready), _stage(h, ready), _stage(c, ready), wk, cw
 
 
 @functools.lru_cache(maxsize=None)
@@ -466,23 +487,6 @@ def sm90_schedule(Bn, H, W, Cx, C, k, device=None) -> dict:
     dev = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     return dict(_sm90_schedule(Bn, H, W, Cx, C, k, index))
-
-
-def launch_wmma(dims, x, h, c, w, b):
-    """The WMMA kernel of conv_lstm_cell.cu (bf16) on w (k, k, Cx + C, 4C).
-    h' and c' are allocated in h's layout."""
-    Bn, H, W, Cx, C, k = dims
-    h_out, c_out = empty_nhwc_like(h), empty_nhwc_like(h)
-    lds = [pixel_stride(t) for t in (x, h, c, h_out)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib("conv_lstm_cell").conv_lstm_cell_bf16(
-            x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
-            b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            Bn, H, W, Cx, C, k, *lds, stream)
-    _check_err(err, "conv_lstm_cell_bf16")
-    launches["conv_lstm_cell"] += 1
-    return h_out, c_out
 
 
 @functools.lru_cache(maxsize=None)
@@ -557,8 +561,9 @@ def launch_sm90(dims, x, h, c, wk, cw, b):
 
 def conv_lstm_cell(x, h, c, w, b):
     """One ConvLSTM cell (gate order i, f, o, g), w (k, k, Cx + C, 4C).
-    Returns (h_new, c_new), both in h's layout (a view of a padded buffer
-    where h is one)."""
+    Returns (h_new, c_new), both in the layout in which the kernel reads h:
+    h's own (a view of a padded buffer where h is one), or on CUDA, where
+    `stage_cell` had to copy h, the padded layout of its copy."""
     dims = _check_cell(x, h, c, w, b)
     if x.device.type == "cpu":
         h_new, c_new = conv_lstm_cell_plain(x, h, c, w, b)
@@ -567,19 +572,9 @@ def conv_lstm_cell(x, h, c, w, b):
         return (empty_nhwc_like(h).copy_(h_new),
                 empty_nhwc_like(h).copy_(c_new))
     _check_cuda_cell(x, h, c, w, b)
+    x, h, c, wk, cw = stage_cell(x, h, c, w)
+    _check(all(t.shape[0] * t.stride(0) < 2 ** 31 for t in (x, h, c))
+           and wk.numel() < 2 ** 31, "inputs too large for 32-bit indexing")
     if x.dtype == torch.float32:
         return launch_f32(dims, x, h, c, w, b)
-    if takes_sm90(x, h, c, w):
-        return launch_sm90(dims, x, h, c, *sm90_weights(w, dims[4]), b)
-    return launch_wmma(dims, x, h, c, w, b)
-
-
-def conv_lstm_cell_wmma(x, h, c, w, b):
-    """The WMMA kernel of csrc/conv_lstm_cell.cu (bf16 on mma.sync) on any
-    bf16 CUDA cell. `conv_lstm_cell` sends it only the bf16 cells
-    TMA cannot describe; this entry point times it beside the wgmma kernel
-    on the same inputs."""
-    dims = _check_cell(x, h, c, w, b)
-    _check_cuda_cell(x, h, c, w, b)
-    _check(x.dtype == torch.bfloat16, "the WMMA kernel takes bfloat16")
-    return launch_wmma(dims, x, h, c, w, b)
+    return launch_sm90(dims, x, h, c, wk, cw, b)

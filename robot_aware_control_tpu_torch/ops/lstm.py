@@ -72,9 +72,7 @@ class ConvLSTMCell(nn.Module):
         """state = (h, c). Returns (h_new, (h_new, c_new))."""
         h, c = state
         if fused:
-            # a view of a padded buffer (det's cell input) is read in place
-            if kernels.pixel_stride(x) is None:
-                x = x.contiguous()
+            # the wrapper reads x as it is or stages it (kernels.stage_cell)
             h_new, c_new = kernels.conv_lstm_cell(
                 x, h, c, self.weight.to(x.dtype), self.bias)
         else:
@@ -150,7 +148,7 @@ class ConvLSTM(nn.Module):
 def zero_state(batch, fh, fw, hid_ch, dtype=torch.float32, device=None):
     """Zero (h, c) of both cells, views of buffers whose pixel stride is
     hid_ch rounded up to 8 (kernels.padded_nhwc; contiguous where hid_ch is
-    a multiple of 8), which the wgmma/TMA cell kernel takes at any even
+    a multiple of 8), which the wgmma/TMA cell kernel reads in place at any
     hid_ch."""
     z = lambda: kernels.padded_nhwc(batch, fh, fw, hid_ch, dtype, device,
                                     zero=True)

@@ -9,7 +9,7 @@ them out (tests/test_torch_export.py loads such dicts strictly into the
 reference's modules). The port loads them strictly; its rollout costs
 equal the JAX model's, loaded by the JAX `torch_import` from the same dict,
 to 1e-4 relative (float32 convolution stacks summed in another order, as
-tests/test_torch_port_families.py holds them). The port's export equals
+tests/test_torch_port_families_*.py hold them). The port's export equals
 the JAX export key for key and bit for bit, and a `.pt` round trip through
 torch.save is the identity."""
 

@@ -185,10 +185,10 @@ def _assert_cell_close(got, want, dtype, tol):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-# bf16 with channels in multiples of 8 takes the wgmma/TMA kernel; 13/20
-# channels the WMMA kernel's element-wise loads, and C=20 leaves part of a
-# 32-channel tile empty; float32 always the float32 kernel (4-byte copies
-# at 13/20 channels)
+# bf16 always takes the wgmma/TMA kernel: 24/40 read in place, 13/20
+# (contiguous rows of 26 and 40 bytes) staged into padded views with the
+# weights gate-packed; float32 always the float32 kernel (4-byte copies at
+# 13/20 channels)
 @pytest.mark.parametrize("B,H,W,Cx,C,k", [(3, 5, 7, 24, 40, 5),
                                           (2, 6, 8, 13, 20, 3)])
 def test_gpu_cell_kernel_matches_plain(cuda, monkeypatch, dtype, tol,
@@ -199,7 +199,7 @@ def test_gpu_cell_kernel_matches_plain(cuda, monkeypatch, dtype, tol,
     args = _cell_args(cuda, dtype, B, H, W, Cx, C, k)
     before = dict(kernels.launches)
     got = kernels.conv_lstm_cell(*args)
-    sm90 = dtype == torch.bfloat16 and Cx % 8 == 0 and C % 8 == 0
+    sm90 = dtype == torch.bfloat16
     assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
     assert (kernels.launches["conv_lstm_cell_sm90"]
             == before["conv_lstm_cell_sm90"] + sm90)
@@ -230,28 +230,74 @@ def test_gpu_sm90_cell_matches_plain(cuda, B, H, W, Cx, C, k):
                        torch.bfloat16, 1e-2)
 
 
-def test_gpu_wmma_cell_matches_plain_on_16_byte_rows(cuda):
-    """The WMMA kernel's 16-byte loads, which the planner's shapes take
-    when it is called by name."""
+def _assert_one_sm90(before):
+    """One cell launch since `before` (kernels.launches), through the
+    wgmma/TMA kernel, and no other kernel."""
+    launched = {n: kernels.launches[n] - before[n] for n in before}
+    assert launched == {"capsule_mask_render": 0, "conv_lstm_cell": 1,
+                        "conv_lstm_cell_sm90": 1, "conv_lstm_cell_f32": 0}
+
+
+def test_gpu_sm90_cell_matches_plain_on_16_byte_rows(cuda):
+    """24/40 channels (48- and 80-byte rows, a partial channel tile), read
+    in place: one sm90 launch, within one bf16 rounding step."""
     args = _cell_args(cuda, torch.bfloat16, 3, 5, 7, 24, 40, 5)
-    before = kernels.launches["conv_lstm_cell_sm90"]
-    got = kernels.conv_lstm_cell_wmma(*args)
-    assert kernels.launches["conv_lstm_cell_sm90"] == before
+    before = dict(kernels.launches)
+    got = kernels.conv_lstm_cell(*args)
+    _assert_one_sm90(before)
     _assert_cell_close(got, kernels.conv_lstm_cell_plain(*args),
                        torch.bfloat16, 1e-2)
 
 
-def test_gpu_unaligned_bf16_cell_takes_wmma(cuda):
-    """A tensor TMA cannot address (not 16-byte aligned) goes to the WMMA
-    kernel, and the result still matches."""
+def test_gpu_unaligned_bf16_cell_takes_sm90(cuda):
+    """A tensor TMA cannot address (not 16-byte aligned) is staged into an
+    aligned padded view: one copy, one sm90 launch, and the result still
+    matches."""
     x, h, c, w, b = _cell_args(cuda, torch.bfloat16, 2, 6, 8, 16, 16, 3)
     x = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)[1:].view(
         x.shape).copy_(x)
     assert x.data_ptr() % 16 != 0
-    before = kernels.launches["conv_lstm_cell_sm90"]
+    before, staged = dict(kernels.launches), kernels.staged["inputs"]
     got = kernels.conv_lstm_cell(x, h, c, w, b)
-    assert kernels.launches["conv_lstm_cell_sm90"] == before
+    _assert_one_sm90(before)
+    assert kernels.staged["inputs"] == staged + 1
     _assert_cell_close(got, kernels.conv_lstm_cell_plain(x, h, c, w, b),
+                       torch.bfloat16, 1e-2)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_gpu_sm90_cell_matches_plain_at_odd_channels(cuda, padded):
+    """Odd Cx and C (13/21): contiguous, staged, or in padded views with
+    NaN in every pad lane, read in place. The channels past Cx and C come
+    from TMA's zero fill and the packed weights' zero columns, never from
+    a pad lane: one sm90 launch, finite outputs within one bf16 rounding
+    step."""
+    raw = _cell_args(cuda, torch.bfloat16, 2, 6, 8, 13, 21, 3, seed=34)
+    args = _det_layout(*raw) if padded else raw
+    before, staged = dict(kernels.launches), kernels.staged["inputs"]
+    got = kernels.conv_lstm_cell(*args)
+    _assert_one_sm90(before)
+    assert kernels.staged["inputs"] == staged + (0 if padded else 3)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*raw),
+                       torch.bfloat16, 1e-2)
+
+
+@pytest.mark.parametrize("C", [252, 100])
+@pytest.mark.parametrize("k", [5, 3])
+def test_gpu_staged_sm90_cell_at_model_widths(cuda, C, k):
+    """A model of g_dim 252 or 100 as it steps its first cell at the
+    planner's B = 100: x contiguous (a *_in convolution's output, staged),
+    h and c the padded views of lstm.zero_state (NaN pad lanes, read in
+    place); one copy, one sm90 launch, within one bf16 rounding step."""
+    raw = _cell_args(cuda, torch.bfloat16, 100, 6, 8, C, C, k, seed=C + k)
+    args = [raw[0]] + _det_layout(*raw)[1:]
+    before, staged = dict(kernels.launches), kernels.staged["inputs"]
+    got = kernels.conv_lstm_cell(*args)
+    _assert_one_sm90(before)
+    assert kernels.staged["inputs"] == staged + 1
+    assert got[0].stride() == args[1].stride()
+    _assert_cell_close(got, kernels.conv_lstm_cell_plain(*raw),
                        torch.bfloat16, 1e-2)
 
 
@@ -338,8 +384,8 @@ def test_gpu_kernels_refuse_autograd(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         kernels.conv_lstm_cell(x, h, c, w, b)
     with pytest.raises(RuntimeError, match="no backward"):
-        kernels.conv_lstm_cell_wmma(x.bfloat16(), h.bfloat16(), c.bfloat16(),
-                                    w.bfloat16(), b)
+        kernels.conv_lstm_cell(x.bfloat16(), h.bfloat16(), c.bfloat16(),
+                               w.bfloat16(), b)
     segs, hh, ww = mask_case("planner_500", cuda)
     with pytest.raises(RuntimeError, match="no backward"):
         kernels.capsule_mask_render(segs.requires_grad_(True), hh, ww)
@@ -381,8 +427,10 @@ def test_gpu_f32_cell_result_depends_on_its_row_alone(cuda, k):
 
 
 def test_gpu_small_cell_kernels_depend_on_their_row_alone(cuda):
-    """The same for the WMMA (bf16) and float32 kernels at small shapes."""
-    assert len(small_cell_invariance(cuda)) == 4
+    """The same for the wgmma/TMA kernel at 13/20 channels (bf16; padded
+    views with NaN pad lanes and contiguous tensors, staged) and the
+    float32 kernel at small shapes."""
+    assert len(small_cell_invariance(cuda)) == 6
 
 
 def test_gpu_batched_plans_equal_single(cuda):
@@ -435,23 +483,21 @@ def test_gpu_sm90_cell_matches_plain_at_det_channels(cuda, k, B):
 
 
 @pytest.mark.parametrize("k", [5, 3])
-def test_gpu_wmma_cell_matches_plain_at_det_channels(cuda, k):
-    """The WMMA kernel called by name at det's channels on contiguous
-    tensors (520-byte rows: its element-wise loads), and the routing of a
-    contiguous 260-channel cell, and of one on a 262-channel pixel stride,
-    to it: one launch, none through sm90, within one bf16 rounding step."""
+def test_gpu_staged_sm90_cell_matches_plain_at_det_channels(cuda, k):
+    """det's channels (Cx = C = 260) on contiguous tensors (520-byte rows)
+    and on a 262-channel pixel stride with NaN pad lanes: neither is read
+    in place; each is staged into padded views and takes the wgmma/TMA
+    kernel, one launch, within one bf16 rounding step."""
     args = _cell_args(cuda, torch.bfloat16, 100, 6, 8, 260, 260, k, seed=k)
     want = kernels.conv_lstm_cell_plain(*args)
-    _assert_cell_close(kernels.conv_lstm_cell_wmma(*args), want,
-                       torch.bfloat16, 1e-2)
     views = [torch.full((100, 6, 8, 262), float("nan"), dtype=torch.bfloat16,
                         device=cuda)[..., :260].copy_(t) for t in args[:3]]
     for ins in (args[:3], views):
-        before = dict(kernels.launches)
+        before, staged = dict(kernels.launches), kernels.staged["inputs"]
         got = kernels.conv_lstm_cell(*ins, *args[3:])
-        assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
-        assert (kernels.launches["conv_lstm_cell_sm90"]
-                == before["conv_lstm_cell_sm90"])
+        _assert_one_sm90(before)
+        assert kernels.staged["inputs"] == staged + 3
+        assert kernels.pixel_stride(got[0]) == 264
         _assert_cell_close(got, want, torch.bfloat16, 1e-2)
 
 
@@ -466,22 +512,23 @@ def test_gpu_cell_kernels_match_plain_at_det_channels(cuda, monkeypatch,
     canonical, 258 without state maps), contiguous or in det's layout
     (NaN pad lanes), on the parameters' (k, k, 2C, 4C) weights: float32
     through the float32 kernel to 1e-4 (TF32 off on the plain side), bf16
-    contiguous through the WMMA kernel and padded through the wgmma/TMA
+    contiguous (staged) and padded (read in place) through the wgmma/TMA
     kernel (on its packed copy) to one bf16 rounding step; finite outputs
-    in h's layout."""
+    in the layout in which the kernel read h (contiguous bf16 h is staged
+    into a padded view first)."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     raw = _cell_args(cuda, dtype, B, 6, 8, C, C, k, seed=C + k)
     args = _det_layout(*raw) if padded else raw
     before = dict(kernels.launches)
     got = kernels.conv_lstm_cell(*args)
-    sm90 = dtype == torch.bfloat16 and padded
+    sm90 = dtype == torch.bfloat16
     assert kernels.launches["conv_lstm_cell"] == before["conv_lstm_cell"] + 1
     assert (kernels.launches["conv_lstm_cell_sm90"]
             == before["conv_lstm_cell_sm90"] + sm90)
     assert (kernels.launches["conv_lstm_cell_f32"]
             == before["conv_lstm_cell_f32"] + (dtype == torch.float32))
     assert all(bool(torch.isfinite(t).all()) for t in got)
-    assert got[0].stride() == args[1].stride()
+    assert got[0].stride() == kernels.stage_cell(*args[:4])[1].stride()
     _assert_cell_close(got, kernels.conv_lstm_cell_plain(*raw), dtype,
                        1e-4 if dtype == torch.float32 else 1e-2)
 

@@ -195,24 +195,27 @@ def test_cell_wrapper_rejects_bad_weights():
             torch.zeros(1040))
 
 
-@pytest.mark.parametrize("dtype,cx,ch,offset,want,ld", [
-    (torch.bfloat16, 256, 256, 0, True, None),  # the planner's cells
-    (torch.bfloat16, 24, 40, 0, True, None),    # a partial 64-channel tile
-    (torch.bfloat16, 13, 20, 0, False, None),   # rows not a multiple of 16 bytes
-    (torch.bfloat16, 16, 16, 1, False, None),   # x not 16-byte aligned
-    (torch.float32, 256, 256, 0, False, None),  # float32: the float32 kernel
-    (torch.bfloat16, 260, 260, 0, True, 264),   # det: padded views
-    (torch.bfloat16, 258, 258, 0, True, 264),   # det without robot state
-    (torch.bfloat16, 260, 260, 0, False, None), # contiguous 260: 520-byte rows
-    (torch.float32, 260, 260, 0, False, 264),   # float32 det: the float32 kernel
-    (torch.bfloat16, 13, 13, 0, False, 16),     # an odd channel count
-    (torch.bfloat16, 260, 260, 0, False, 262),  # a pixel stride of 262
+@pytest.mark.parametrize("dtype,cx,ch,offset,staged,ld", [
+    (torch.bfloat16, 256, 256, 0, "", None),    # the planner's cells
+    (torch.bfloat16, 24, 40, 0, "", None),      # a partial 64-channel tile
+    (torch.bfloat16, 13, 20, 0, "xhcw", None),  # rows not a multiple of 16 bytes
+    (torch.bfloat16, 16, 16, 1, "xhc", None),   # x, h, c not 16-byte aligned
+    (torch.float32, 256, 256, 0, "", None),     # float32: the float32 kernel
+    (torch.bfloat16, 260, 260, 0, "w", 264),    # det: padded views
+    (torch.bfloat16, 258, 258, 0, "w", 264),    # det without robot state
+    (torch.bfloat16, 260, 260, 0, "xhcw", None),  # contiguous 260: 520-byte rows
+    (torch.float32, 260, 260, 0, "", 264),      # float32 det: the float32 kernel
+    (torch.bfloat16, 13, 13, 0, "w", 16),       # an odd channel count
+    (torch.bfloat16, 260, 260, 0, "xhcw", 262),  # a pixel stride of 262
 ])
-def test_cell_kernel_choice(dtype, cx, ch, offset, want, ld):
-    """Which CUDA kernel a cell takes depends only on dtype, channel counts,
-    strides and alignment: x, h and c contiguous or views of buffers of `ld`
-    channels a pixel. The rule is plain Python, so it is checked here on
-    CPU tensors; the launches are checked on the card."""
+def test_cell_kernel_choice(dtype, cx, ch, offset, staged, ld):
+    """Every CUDA cell of a type takes one kernel (bf16 the wgmma/TMA
+    kernel, float32 the float32 kernel); which inputs the wrapper copies
+    first (`stage_cell`) depends only on dtype, channel counts, strides and
+    alignment: x, h and c contiguous or views of buffers of `ld` channels
+    a pixel, w gate-packed where C is not a multiple of 8. The rule is
+    plain Python, so it is checked here on CPU tensors; the launches are
+    checked on the card."""
     def make(n):
         if ld is None:
             return torch.zeros(2 * 6 * 8 * n + offset, dtype=dtype)[
@@ -221,7 +224,11 @@ def test_cell_kernel_choice(dtype, cx, ch, offset, want, ld):
 
     x, h, c = make(cx), make(ch), make(ch)
     w = torch.zeros(3, 3, cx + ch, 4 * ch, dtype=dtype)
-    assert kernels.takes_sm90(x, h, c, w) is want
+    out = kernels.stage_cell(x, h, c, w)
+    assert "".join(n for n, a, b in zip("xhcw", (x, h, c, w), out)
+                   if a is not b) == staged
+    if dtype == torch.bfloat16:
+        assert all(kernels.tma_ready(t) for t in out[:3])
 
 
 @pytest.mark.parametrize("C,ld", [(260, 264), (258, 264), (20, 24)])

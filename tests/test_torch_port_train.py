@@ -374,7 +374,6 @@ def test_train_step_never_reaches_the_kernels(jax_side, monkeypatch):
     before = dict(kernels.launches)
     cell = kernels.conv_lstm_cell
     monkeypatch.setattr(kernels, "conv_lstm_cell", refuse)
-    monkeypatch.setattr(kernels, "conv_lstm_cell_wmma", refuse)
     monkeypatch.setattr(kernels, "capsule_mask_render", refuse)
     metrics, _, _ = _port_train_step(js, cfg, 0.0)
     assert np.isfinite(float(metrics["loss"])) and kernels.launches == before

@@ -1,16 +1,17 @@
-"""The other model families (svg_vec, det_vec, cdna_det, cdna_robonet), the
-inverse model and the debug_cem rollout plots, held against the JAX
-package on the CPU: the fc-LSTM cells and stacks, the vector encoder and
-decoder (channel dropout injected), CDNA's kernel warp, each family's steps,
-rollouts, CEM plans, train and eval steps, checkpoints both ways and its
-trainer. Inputs come from seeded numpy arrays; the JAX functions' random
-draws (jax.random.normal, the encoder's `_dropout2d`) are patched to the
-draws the port is given. Small sizes: g_dim 16, z_dim 4, rnn_size 32,
-1-layer stacks, 16x32 frames, He-scaled weights (at the reference's N(0,
-0.02) the prediction hardly depends on its inputs) except where a
-gradient limit was set at the reference's scale."""
+"""JAX-side helpers and the per-family checks of the other model families
+(svg_vec, det_vec, cdna_det, cdna_robonet), shared by the test modules
+that hold each family against the JAX package on the CPU:
+tests/test_torch_port_families_svg_vec.py, _det_vec.py and _cdna.py. Not
+a test module: each of those parametrizes the `family_*` checks below over
+its own families, so that tier-1's workers (pytest-xdist, one module a
+worker) share the families' JAX compiles evenly.
 
-import functools
+Inputs come from seeded numpy arrays; the JAX functions' random draws
+(jax.random.normal, the encoder's `_dropout2d`) are patched to the draws
+the port is given. Small sizes: g_dim 16, z_dim 4, rnn_size 32, 1-layer
+stacks, 16x32 frames, He-scaled weights (at the reference's N(0, 0.02) the
+prediction hardly depends on its inputs) except where a gradient limit was
+set at the reference's scale."""
 
 import jax
 import jax.numpy as jnp
@@ -20,41 +21,26 @@ import torch
 
 from robot_aware_control_tpu.config import Config as JConfig
 from robot_aware_control_tpu.data.synthetic import synthetic_batch as jsynthetic_batch
-from robot_aware_control_tpu.models import cdna as jcdna
-from robot_aware_control_tpu.models import inverse_model as jinverse
 from robot_aware_control_tpu.models.registry import get_model as jget_model
 from robot_aware_control_tpu.ops import encoders as jencoders
 from robot_aware_control_tpu.ops import lstm as jlstm
-from robot_aware_control_tpu.ops import nn as jnn
 from robot_aware_control_tpu.planning import cem as jcem
 from robot_aware_control_tpu.planning.rollout import RolloutEngine as JRolloutEngine
 from robot_aware_control_tpu.training import checkpoint as jckpt
-from robot_aware_control_tpu.training import plot as jplot
 from robot_aware_control_tpu.training import step as jstep
 from robot_aware_control_tpu_torch import convert
 from robot_aware_control_tpu_torch.config import Config
 from robot_aware_control_tpu_torch.control.plan_server import build_server
 from robot_aware_control_tpu_torch.data.norm import LOCOBOT_HIGH, LOCOBOT_LOW, normalize
-from robot_aware_control_tpu_torch.models import cdna as tcdna
-from robot_aware_control_tpu_torch.models import inverse_model as tinverse
 from robot_aware_control_tpu_torch.models.registry import get_model, is_stochastic
 from robot_aware_control_tpu_torch.ops import kernels
-from robot_aware_control_tpu_torch.ops import lstm as tlstm
-from robot_aware_control_tpu_torch.ops.encoders import SKIP_CHANNELS, Decoder, Encoder
-from robot_aware_control_tpu_torch.ops.nn import MLPEncoder, apply_batch_stats
+from robot_aware_control_tpu_torch.ops.encoders import SKIP_CHANNELS
 from robot_aware_control_tpu_torch.planning.cem import CEMPolicy
 from robot_aware_control_tpu_torch.planning.rollout import RolloutEngine, prepare_goals
 from robot_aware_control_tpu_torch.training import checkpoint as tckpt
-from robot_aware_control_tpu_torch.training import plot as tplot
 from robot_aware_control_tpu_torch.training.step import make_eval_step, make_train_step
 from robot_aware_control_tpu_torch.training.trainer import PredictionTrainer
-from torch_family_cases import (
-    FAMILIES,
-    INVERSE,
-    INVERSE_HORIZON,
-    SMALL_STACKS,
-    inverse_batch,
-)
+from torch_family_cases import SMALL_STACKS
 from torch_train_cases import one_torch_thread  # noqa: F401 (autouse)
 from torch_train_cases import (
     STEP_KW,
@@ -157,212 +143,6 @@ def _port_drop(masks, steps):
             for s in range(len(SKIP_CHANNELS))]
 
 
-# ------------------------------------------------------------ fc-LSTMs
-def test_lstm_cell_matches_jax(rng):
-    """LSTMCell against lstm_cell (torch gate order i, f, g, o), float32:
-    h' and c' to 1e-5; the conv cell's order i, f, o, g is far off."""
-    shapes = jax.eval_shape(lambda k: jlstm.lstm_cell_init(k, 12, 8),
-                            jax.random.PRNGKey(0))
-    params = random_tree(shapes, rng)
-    x, h, c = (rng.randn(3, n).astype(np.float32) for n in (12, 8, 8))
-    want_h, (_, want_c) = jlstm.lstm_cell(_jtree(params), (jnp.asarray(h),
-                                          jnp.asarray(c)), jnp.asarray(x))
-    cell = tlstm.LSTMCell(12, 8)
-    cell.load_state_dict(convert.svg_state_dict(params, {}), strict=True)
-    with torch.no_grad():
-        got_h, (_, got_c) = cell(_t(x), (_t(h), _t(c)))
-        gi, gf, gg, go = cell.ih(_t(x)).add(cell.hh(_t(h))).chunk(4, -1)
-        conv_order_c = torch.sigmoid(gf) * _t(c) + torch.sigmoid(gi) * torch.tanh(go)
-    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), **TOL)
-    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), **TOL)
-    assert np.abs(conv_order_c.numpy() - np.asarray(want_c)).max() > 1e-2
-
-
-@pytest.mark.parametrize("kind", ["lstm", "gaussian"])
-def test_lstm_stacks_match_jax(rng, monkeypatch, kind):
-    """LSTM (embed, 2 cells, tanh head) and GaussianLSTM (mu, logvar and
-    the reparameterized z with the draw injected) against the JAX stacks,
-    float32, to 1e-5, the new (h, c) of both cells too."""
-    din, dout, dhid, B = 10, 6, 8, 3
-    init = jlstm.lstm_init if kind == "lstm" else jlstm.gaussian_lstm_init
-    shapes = jax.eval_shape(lambda k: init(k, din, dout, dhid, 2),
-                            jax.random.PRNGKey(0))
-    params = random_tree(shapes, rng)
-    x = rng.randn(B, din).astype(np.float32)
-    state = tuple((rng.randn(B, dhid).astype(np.float32),
-                   rng.randn(B, dhid).astype(np.float32)) for _ in range(2))
-    jstate = jax.tree_util.tree_map(jnp.asarray, state)
-    cls = tlstm.LSTM if kind == "lstm" else tlstm.GaussianLSTM
-    stack = cls(din, dout, dhid, 2)
-    stack.load_state_dict(convert.svg_state_dict(params, {}), strict=True)
-    tstate = tuple((_t(h), _t(c)) for h, c in state)
-    eps = fixed_normal((B, dout))
-    with torch.no_grad():
-        if kind == "lstm":
-            want = jlstm.lstm_apply(_jtree(params), jstate, jnp.asarray(x))
-            got = stack(_t(x), tstate)
-        else:
-            monkeypatch.setattr(jax.random, "normal", fake_jax_normal)
-            want = jlstm.gaussian_lstm_apply(_jtree(params), jstate,
-                                             jnp.asarray(x), jax.random.PRNGKey(0))
-            got = stack(_t(x), tstate, eps=torch.tensor(eps))
-    for g, w in zip(jax.tree_util.tree_leaves(got),
-                    jax.tree_util.tree_leaves(want)):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w), **TOL)
-    zeros = tlstm.lstm_zero_state(B, dhid, 2)
-    assert [tuple(t.shape) for s in zeros for t in s] == [(B, dhid)] * 4
-
-
-def test_mlp_encoder_matches_jax(rng):
-    shapes = jax.eval_shape(lambda k: jnn.mlp_encoder_init(k, 5, 4, 32),
-                            jax.random.PRNGKey(0))
-    params = random_tree(shapes, rng)
-    x = rng.randn(7, 5).astype(np.float32)
-    mlp = MLPEncoder(5, 4)
-    mlp.load_state_dict(convert.svg_state_dict(params, {}), strict=True)
-    with torch.no_grad():
-        got = mlp(_t(x)).numpy()
-    np.testing.assert_allclose(got, np.asarray(jnn.mlp_encoder(
-        _jtree(params), jnp.asarray(x))), **TOL)
-
-
-# ---------------------------------------------------- vector encoder/decoder
-def _vector_case(rng, init, *args):
-    shapes = jax.eval_shape(lambda k: init(k, *args), jax.random.PRNGKey(0))
-    return random_tree(shapes, rng)
-
-
-@pytest.mark.parametrize("mode", ["eval", "train", "train_dropout"])
-def test_vector_encoder_matches_jax(rng, monkeypatch, mode):
-    """The vector Encoder (c1-c4 VGG stacks, c5 VALID (fh, fw) conv +
-    BatchNorm + tanh) against the JAX encoder at 16x32 (fh, fw = 1, 2):
-    the g_dim vector and the four skips to 1e-5 in eval mode; in train mode
-    to 2e-4 (batch statistics: c5's BatchNorm normalises 3 values a
-    channel, and JAX's own float32 result lies up to 3.8e-5 from the same
-    function in float64, the port's 3.4e-5, seeds 0-2), with the BatchNorm
-    statistics it returns; with dropout the same keep masks injected into
-    both (JAX `_dropout2d` patched). The port's convolutions run without
-    oneDNN here, whose CPU convolutions round more than XLA's: through 13
-    float32 convolutions at He scale it differed from JAX by up to 1.95e-5
-    in eval mode (seeds 0-5; from the port's module in float64 by 1.63e-5,
-    JAX by 3.3e-6), without oneDNN by 3.0e-6."""
-    B, nc, g = 3, 5, 16
-    params, state = _vector_case(rng, jencoders.encoder_init, g, nc, (1, 2))
-    x = rng.rand(B, H, W, nc).astype(np.float32)
-    train = mode != "eval"
-    masks = _keep_masks(1, B)[0] if mode == "train_dropout" else None
-    if masks is not None:
-        monkeypatch.setattr(jencoders, "_dropout2d", _InjectedDropout([masks]))
-    want_h, want_skips, want_state = jencoders.encoder(
-        _jtree(params), _jtree(state), jnp.asarray(x), train,
-        dropout_rate=0.25 if masks else None,
-        dropout_rng=jax.random.PRNGKey(0) if masks else None)
-    enc = Encoder(g, nc, (1, 2))
-    enc.load_state_dict(convert.svg_state_dict(params, state), strict=True)
-    stats = [] if train else None
-    with torch.no_grad(), torch.backends.mkldnn.flags(enabled=False):
-        h, skips = enc(_t(x), stats,
-                       None if masks is None else [_t(m) > 0.5 for m in masks],
-                       0.25)
-    assert h.shape == (B, g)
-    tol = dict(rtol=1e-5, atol=2e-4) if train else TOL
-    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **tol)
-    for got, want in zip(skips, want_skips):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
-    if train:
-        apply_batch_stats(stats)
-        got_state = convert.jax_flat_trees(enc)[1]
-        for k, v in flat(want_state).items():
-            np.testing.assert_allclose(got_state[k], v, rtol=1e-5, atol=1e-6)
-    if masks is not None:  # the masks moved the output
-        undropped = jencoders.encoder(_jtree(params), _jtree(state),
-                                      jnp.asarray(x), train)[0]
-        assert np.abs(np.asarray(undropped) - np.asarray(want_h)).max() > 1e-2
-
-
-def _decoder_case(rng, B=3, g=16):
-    params, state = _vector_case(rng, jencoders.decoder_init, g, 3, (1, 2))
-    vec = np.tanh(rng.randn(B, g)).astype(np.float32)
-    skips = [rng.rand(B, H // 2 ** i, W // 2 ** i, c).astype(np.float32)
-             for i, c in enumerate(SKIP_CHANNELS)]
-    return params, state, vec, skips
-
-
-def _port_decoder(params, state):
-    dec = Decoder(16, 3, (1, 2))
-    dec.load_state_dict(convert.svg_state_dict(params, state), strict=True)
-    return dec
-
-
-@pytest.mark.parametrize("train", [False, True])
-def test_vector_decoder_matches_jax(rng, train):
-    """The vector Decoder (upc1's VALID transpose conv from the vector to
-    (fh, fw), BatchNorm, LeakyReLU, four upsample + skip + VGG stages,
-    sigmoid) against the JAX decoder: frames to 1e-5."""
-    params, state, vec, skips = _decoder_case(rng)
-    want, _ = jencoders.decoder(_jtree(params), _jtree(state), jnp.asarray(vec),
-                                [jnp.asarray(s) for s in skips], train)
-    with torch.no_grad():
-        got = _port_decoder(params, state)(_t(vec), [_t(s) for s in skips],
-                                           [] if train else None)
-    assert got.shape == (3, H, W, 3)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-
-
-def test_decoder_parity_rejects_an_unflipped_transpose_weight(rng):
-    """`lax.conv_transpose` does not flip its kernel and
-    `F.conv_transpose2d` does: the port flips it once, in ConvTranspose.
-    The same check with upc1's weight flipped spatially in the state dict
-    (the unflipped torch call) fails by far more than its tolerance; the
-    transpose conv alone equals JAX's to 1e-5 at (3, 4, 2, 5) weights."""
-    params, state, vec, skips = _decoder_case(rng)
-    want, _ = jencoders.decoder(_jtree(params), _jtree(state), jnp.asarray(vec),
-                                [jnp.asarray(s) for s in skips], False)
-    bad = jax.tree_util.tree_map(np.copy, params)
-    bad["upc1"]["conv"]["w"] = bad["upc1"]["conv"]["w"][::-1, ::-1].copy()
-    with torch.no_grad():
-        got = _port_decoder(bad, state)(_t(vec), [_t(s) for s in skips])
-    assert np.abs(got.numpy() - np.asarray(want)).max() > 100 * TOL["atol"]
-    # the transpose conv alone, at an asymmetric kernel
-    from robot_aware_control_tpu_torch.ops.nn import ConvTranspose
-
-    w = rng.randn(3, 4, 2, 5).astype(np.float32)
-    b = rng.randn(5).astype(np.float32)
-    x = rng.randn(6, 2).astype(np.float32)
-    want = jencoders._conv_transpose_valid(
-        {"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x)[:, None, None])
-    tc = ConvTranspose(2, 5, (3, 4))
-    tc.load_state_dict({"weight": _t(w.transpose(3, 2, 0, 1)), "bias": _t(b)})
-    with torch.no_grad():
-        np.testing.assert_allclose(tc(_t(x)).numpy(), np.asarray(want), **TOL)
-
-
-# ---------------------------------------------------------------- CDNA
-@pytest.mark.parametrize("k", [5, 3])
-def test_apply_cdna_kernels_matches_jax(rng, k):
-    """The kernel warp (one einsum over k x k neighbourhoods) against JAX's
-    on random images and normalised kernels: (B, H, W, F, C) to 1e-6."""
-    img = rng.rand(2, 6, 8, 3).astype(np.float32)
-    kern = rng.rand(2, k, k, 4).astype(np.float32)
-    kern /= kern.sum((1, 2), keepdims=True)
-    want = np.asarray(jcdna.apply_cdna_kernels(jnp.asarray(img), jnp.asarray(kern)))
-    got = tcdna.apply_cdna_kernels(_t(img), _t(kern)).numpy()
-    assert got.shape == (2, 6, 8, 4, 3)
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
-
-
-def test_cdna_delta_kernel_shifts_the_image():
-    """A delta kernel warps the image by a pure shift (the JAX family test's
-    case, tests/test_model_families.py)."""
-    img = torch.zeros(1, 8, 8, 1)
-    img[0, 4, 4, 0] = 1.0
-    k = torch.zeros(1, 3, 3, 1)
-    k[0, 1, 2, 0] = 1.0  # shift left by 1
-    out = tcdna.apply_cdna_kernels(img, k)
-    assert float(out[0, 4, 3, 0, 0]) == pytest.approx(1.0)
-    assert float(out.sum()) == pytest.approx(1.0)
-
-
 # ---------------------------------------------------------------- steps
 def _step_inputs(rng, B, frames=3):
     img = rng.rand(B, H, W, 3).astype(np.float32)
@@ -399,8 +179,8 @@ def _carry_leaves(carry):
     return [c for c in jax.tree_util.tree_leaves(carry) if c.ndim > 0]
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_family_steps_match_jax(rng, monkeypatch, family):
+
+def family_steps_match_jax(rng, monkeypatch, family):
     """Three inference steps of the family from its zero carry (svg_vec
     with the posterior on a next frame, its draws injected): x_pred,
     the posterior's and prior's statistics and every carry to 1e-4."""
@@ -427,64 +207,9 @@ def test_family_steps_match_jax(rng, monkeypatch, family):
                                        **STACK_TOL)
 
 
-def test_robonet_buffer_wraps_like_jax(rng):
-    """cdna_robonet over 18 steps, so that the 16-slot encoding buffer
-    wraps (the step counter a device tensor, the write an index_copy): each
-    step's x_pred, the buffer and the counter against the JAX model's."""
-    kw = dict(FAM_KW, model="cdna_robonet", g_dim=8)
-    jcfg, cfg = JConfig(**kw), Config(**kw)
-    params, bn = _jax_trees(jcfg)
-    model = _port_model(cfg, params, bn)
-    B = 2
-    step = jax.jit(functools.partial(jcdna.robonet.step, jcfg))
-    jcarry = jcdna.robonet.init_carry(jcfg, B)
-    carry = tcdna.robonet.init_carry(cfg, B, torch.float32, "cpu")
-    jp, jb = _jtree(params), _jtree(bn)
-    for t in range(18):
-        img, mask, robot, action = _step_inputs(rng, B)
-        jout, jcarry, _ = step(jp, jb, jcarry, jnp.asarray(img),
-                               jnp.asarray(mask), jnp.asarray(robot),
-                               jnp.asarray(action))
-        out, carry = _port_step(cfg, model, carry, img, mask, robot, action, B)
-        np.testing.assert_allclose(out["x_pred"].numpy(),
-                                   np.asarray(jout["x_pred"]), **STACK_TOL)
-    assert int(carry.t) == int(jcarry.t) == 18
-    np.testing.assert_allclose(carry.enc_buffer.numpy(),
-                               np.asarray(jcarry.enc_buffer), **STACK_TOL)
-
-
-def test_group_norm_cdna_step_matches_jax(rng, monkeypatch):
-    """cdna_det with GroupNorm cells (cfg.lstm_group_norm): three steps
-    against the JAX model, whose conv_lstm probe for int8 weights is
-    skipped for GroupNorm cells (it raises KeyError for them, ROADMAP
-    section 3); the cells never reach the kernel wrapper."""
-    monkeypatch.setattr(jlstm, "conv_lstm", _jax_conv_lstm)
-    monkeypatch.setattr(kernels, "conv_lstm_cell", lambda *a: pytest.fail(
-        "a GroupNorm cell reached the kernel wrapper"))
-    kw = dict(FAM_KW, model="cdna_det", lstm_group_norm=True)
-    jcfg, cfg = JConfig(**kw), Config(**kw)
-    params, bn = _jax_trees(jcfg)
-    assert "ih_gn" in params["frame_lstm"]["cell0"]
-    model = _port_model(cfg, params, bn)
-    B = 2
-    jcarry = jcdna.init_carry(jcfg, B)
-    carry = tcdna.init_carry(cfg, B, torch.float32, "cpu")
-    for t in range(3):
-        inputs = _step_inputs(rng, B)
-        jout, jcarry, _ = _jax_step(jcfg, _jtree(params), _jtree(bn), jcarry,
-                                    *inputs, t)
-        out, carry = _port_step(cfg, model, carry, *inputs, B)
-        np.testing.assert_allclose(out["x_pred"].numpy(),
-                                   np.asarray(jout["x_pred"]), **STACK_TOL)
-
 
 # ----------------------------------------------------- rollouts and plans
-ROLLOUT_CASES = [(f, "float32") for f in FAMILIES] + [
-    ("svg_vec", "bfloat16"), ("cdna_det", "bfloat16")]
-
-
-@pytest.mark.parametrize("family,dtype", ROLLOUT_CASES)
-def test_family_rollout_matches_jax(rng, family, dtype):
+def family_rollout_matches_jax(rng, family, dtype):
     """The rollout engine's summed costs of the same candidates against the
     JAX engine's, the prior's mean for svg_vec: float32 to 1e-4 relative,
     bf16 to 1e-3 (8 significant bits; each cost sums 2304 pixels)."""
@@ -510,6 +235,7 @@ def test_family_rollout_matches_jax(rng, family, dtype):
                                rtol=rtol)
 
 
+
 def _jax_plan(monkeypatch, jcfg, params, bn, start, goal, noise):
     """The JAX plan with jax.random.normal returning `noise` for the action
     samples' shape (traced once, every iteration sees it)."""
@@ -525,8 +251,8 @@ def _jax_plan(monkeypatch, jcfg, params, bn, start, goal, noise):
     return np.asarray(policy.get_action(start, goal)), policy
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_family_plan_matches_jax(rng, monkeypatch, family):
+
+def family_plan_matches_jax(rng, monkeypatch, family):
     """CEMPolicy.get_action with the same injected action noise gives the
     JAX plan to 1e-5 (svg_vec plans with the prior's mean, its prior draws
     shaped (N, z_dim))."""
@@ -542,35 +268,8 @@ def test_family_plan_matches_jax(rng, monkeypatch, family):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_debug_cem_frames_match_jax(rng, monkeypatch, tmp_path):
-    """debug_cem (JAX `cem.py:_plot_rollouts`): the plan's rollout beside
-    the last goal frame, handed to save_gif (patched in both packages) as
-    horizon-1 frames of (H, 2 W, 3), equal to the JAX policy's to 1e-4;
-    the path names the episode and step."""
-    kw = dict(PLAN_KW, model="svg_vec", debug_cem=True,
-              log_dir=str(tmp_path))
-    jcfg, cfg = JConfig(**kw), Config(**kw)
-    params, bn = _jax_trees(jcfg)
-    start, goal = start_goal(rng, H, W)
-    noise = rng.randn(6, 3, 2).astype(np.float32)
-    saved = {"jax": [], "port": []}
-    monkeypatch.setattr(jplot, "save_gif", lambda p, f, fps=2: saved["jax"].append((p, f)))
-    monkeypatch.setattr(tplot, "save_gif", lambda p, f, fps=2: saved["port"].append((p, f)))
-    want_plan, _ = _jax_plan(monkeypatch, jcfg, params, bn, start, goal, noise)
-    got_plan = CEMPolicy(cfg, _port_model(cfg, params, bn), device="cpu").get_action(
-        start, goal, noise=np.broadcast_to(noise, (2, 6, 3, 2)))
-    np.testing.assert_allclose(got_plan, want_plan, atol=1e-5)
-    (jpath, jframes), = saved["jax"]
-    (path, frames), = saved["port"]
-    assert path == jpath == str(tmp_path / "debug_cem_ep0_step0.gif")
-    assert len(frames) == len(jframes) == 3
-    for got, want in zip(frames, jframes):
-        assert got.shape == (H, 2 * W, 3)
-        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)
 
-
-@pytest.mark.parametrize("family", FAMILIES)
-def test_family_batched_plans_equal_single(family):
+def family_batched_plans_equal_single(family):
     """get_action_batched of 3 requests (padded to 4) equals their single
     plans bit for bit on the CPU: the vector models' Linears and CDNA's
     einsums give each row a result of its own inputs, robonet's buffer and
@@ -585,6 +284,7 @@ def test_family_batched_plans_equal_single(family):
     for i in range(3):
         np.testing.assert_array_equal(got[i], singles[i])
     assert len({p.tobytes() for p in singles}) == 3
+
 
 
 # ------------------------------------------------- train and eval steps
@@ -667,9 +367,7 @@ _BN_FED_BIASES = {f: ("['encoder']['c5']['conv']['b']",
                   for f in ("svg_vec", "det_vec")}
 
 
-@pytest.mark.parametrize("sched", [1.0, 0.0])
-@pytest.mark.parametrize("family", FAMILIES)
-def test_family_train_step_matches_jax(family, sched):
+def family_train_step_matches_jax(family, sched):
     """One whole-window train step (sgd at lr 1) at scheduled-sampling
     probability 1 (ground truth fed) and 0 (the model's own frames after
     the first step) against make_train_step: metrics (kld for svg_vec
@@ -718,8 +416,8 @@ def test_family_train_step_matches_jax(family, sched):
         np.testing.assert_allclose(got_bn[k], v, rtol=1e-5, atol=1e-6, err_msg=k)
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_family_eval_step_matches_jax(family):
+
+def family_eval_step_matches_jax(family):
     """The autoregressive eval step (the prior drives svg_vec, its draws
     injected; cells through the kernel's plain version for CDNA) against
     make_eval_step: per-step metrics and predictions to 1e-4."""
@@ -738,6 +436,7 @@ def test_family_eval_step_matches_jax(family):
     np.testing.assert_allclose(preds.numpy(), jpreds, rtol=1e-4, atol=1e-5)
 
 
+
 # ------------------------------------------------- checkpoints, trainer
 def _trainer_kw(tmp_path, **kw):
     return dict(dict(FAM_KW, experiment="synthetic", log_dir=str(tmp_path),
@@ -752,8 +451,8 @@ def _assert_flat_equal(got, want):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_family_checkpoints_load_both_ways(tmp_path, family):
+
+def family_checkpoints_load_both_ways(tmp_path, family):
     """A JAX checkpoint of the family (params, BatchNorm, adam state) loads
     into the port's trainer and through build_server; a port checkpoint
     after a train step loads through the JAX load_checkpoint with JAX
@@ -801,8 +500,8 @@ def test_family_checkpoints_load_both_ways(tmp_path, family):
                                np_tree(bn), "cpu")
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_trainer_trains_each_family(tmp_path, monkeypatch, family):
+
+def trainer_trains_each_family(tmp_path, monkeypatch, family):
     """PredictionTrainer on the synthetic experiment for each family: an
     epoch with finite train and eval metrics (kld for svg_vec alone), an
     eval pass whose cells (CDNA's alone) go through the kernel's wrapper
@@ -834,8 +533,8 @@ def test_trainer_trains_each_family(tmp_path, monkeypatch, family):
     again.logger.close()
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_get_model_builds_every_family(family):
+
+def get_model_builds_every_family(family):
     """The registry builds each family (no family raises), with its carry;
     svg_vec alone is stochastic among them."""
     cfg = Config(**dict(PLAN_KW, model=family))
@@ -845,99 +544,3 @@ def test_get_model_builds_every_family(family):
     carry = mod.init_carry(cfg, 2, torch.float32, "cpu")
     assert type(carry).__name__ in ("Carry", "DetCarry", "RobonetCarry")
     assert is_stochastic(cfg) == (family == "svg_vec")
-
-
-# ------------------------------------------------------------ inverse model
-def _inverse_trees(discretized, bins):
-    cfg = JConfig(**INVERSE)
-    shapes = jax.eval_shape(lambda k: jinverse.init(
-        k, cfg, INVERSE_HORIZON, discretized=discretized, bins=bins),
-        jax.random.PRNGKey(0))
-    return cfg, random_tree(shapes, np.random.RandomState(0))
-
-
-def _port_inverse(params, discretized, bins):
-    model = tinverse.InverseModel(Config(**INVERSE), INVERSE_HORIZON,
-                                  discretized=discretized, bins=bins)
-    model.load_state_dict(convert.svg_state_dict(params, {}), strict=True)
-    return model
-
-
-@pytest.mark.parametrize("discretized", [False, True])
-def test_inverse_apply_matches_jax(discretized):
-    """apply: both frames through the shared stride-2 conv stack (XLA's
-    SAME padding, the odd pixel at the far end), the MLP head; actions or
-    logits to 1e-5."""
-    bins = 5 if discretized else 0
-    jcfg, params = _inverse_trees(discretized, bins)
-    start, goal, _ = inverse_batch(4, 48, 64)
-    want = jinverse.apply(_jtree(params), jcfg, jnp.asarray(start.numpy()),
-                          jnp.asarray(goal.numpy()), INVERSE_HORIZON,
-                          discretized, bins)
-    with torch.no_grad():
-        got = tinverse.apply(_port_inverse(params, discretized, bins), start, goal)
-    assert got.shape == ((4, 3, 2, 5) if discretized else (4, 3, 2))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-
-
-@pytest.mark.parametrize("discretized", [False, True])
-def test_inverse_step_matches_jax(discretized):
-    """One train step (Adam, lr 1e-3) against make_inverse_train_step: the
-    loss to 1e-5 relative and every parameter after the step to 1e-5
-    absolute, 1% of a step: a first Adam step moves a weight by lr g /
-    (|g| + 1e-8), about lr wherever |g| is well above 1e-8 (where it is
-    not, float32 noise in g moves the step: 2.1e-6 at one of fc1's 65536
-    weights)."""
-    bins = 5 if discretized else 11
-    jcfg, params = _inverse_trees(discretized, bins if discretized else 0)
-    start, goal, acts = inverse_batch(4, 48, 64, discretized=discretized)
-    step, tx = jinverse.make_inverse_train_step(jcfg, INVERSE_HORIZON,
-                                                discretized=discretized, bins=bins)
-    jp = _jtree(params)
-    new_p, _, loss = step(jp, tx.init(jp), *(jnp.asarray(t.numpy())
-                                             for t in (start, goal, acts)))
-    model = _port_inverse(params, discretized, bins if discretized else 0)
-    tstep, _ = tinverse.make_inverse_train_step(Config(**INVERSE),
-                                                INVERSE_HORIZON, model,
-                                                discretized=discretized,
-                                                bins=bins)
-    got_loss = tstep(start, goal, acts)
-    np.testing.assert_allclose(float(got_loss), float(loss), rtol=1e-5)
-    got = convert.jax_flat_trees(model)[0]
-    for k, v in flat(np_tree(new_p)).items():
-        np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5, err_msg=k)
-
-
-def test_inverse_model_learns():
-    """(tests/test_collect_inverse.py) 20 steps on one batch of 8 at
-    16x16: the loss falls."""
-    cfg = Config(**INVERSE)
-    model = tinverse.init(cfg, INVERSE_HORIZON, device="cpu")
-    step, _ = tinverse.make_inverse_train_step(cfg, INVERSE_HORIZON, model)
-    batch = inverse_batch(8, 16, 16)
-    losses = [float(step(*batch)) for _ in range(20)]
-    assert losses[-1] < losses[0]
-
-
-def test_inverse_model_discretized():
-    """(tests/test_collect_inverse.py) The discretized head: a finite loss
-    on actions in [-1, 1]; the labels truncate (a01 x bins) toward zero,
-    then clip to [0, bins - 1], as the JAX step's astype(int32) and clip."""
-    cfg = Config(**INVERSE)
-    model = tinverse.init(cfg, 2, discretized=True, bins=5, device="cpu")
-    step, _ = tinverse.make_inverse_train_step(cfg, 2, model, discretized=True,
-                                               bins=5)
-    start, goal, _ = inverse_batch(4, 16, 16)
-    acts = torch.tensor(np.random.RandomState(1).uniform(-1, 1, (4, 2, 2)),
-                        dtype=torch.float32)
-    assert np.isfinite(float(step(start, goal, acts)))
-    # -1.1 -> a01 -0.05 -> x5 -0.25 -> 0 (toward zero); 0.99 -> 4.975 -> 4;
-    # 1.5 -> 6.25 -> 6 -> clipped 4
-    edge = torch.tensor([-1.1, -1.0, -0.61, 0.99, 1.5]).reshape(1, 1, 5)
-    a01 = (edge + 1.0) / 2.0
-    labels = (a01 * 5).to(torch.int64).clamp(0, 4)
-    want = jnp.clip((jnp.asarray(a01.numpy()) * 5).astype(jnp.int32), 0, 4)
-    np.testing.assert_array_equal(labels.numpy(), np.asarray(want))
-    assert labels.flatten().tolist() == [0, 0, 0, 4, 4]
-    with pytest.raises(ValueError):
-        tinverse.make_inverse_train_step(cfg, 2, model, discretized=False)

@@ -76,8 +76,8 @@ def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
         w, b = cell_weights(k, dev, dtype, Cx=C, C=C)
         rows = cell_rows(max(batches), dev, dtype, Cx=C, C=C, seed=k)
         if (fn is kernels.conv_lstm_cell and dtype == torch.bfloat16
-                and not kernels.takes_sm90(*rows, w)):
-            raise AssertionError("the planner's cell does not take sm90")
+                and not all(kernels.tma_ready(t) for t in rows)):
+            raise AssertionError("the planner's cell would be staged")
         ref = {}
         for B in batches:
             x, h, c = (t[:B] for t in rows)
@@ -112,30 +112,44 @@ def cell_invariance(dev, batches=CELL_BATCHES, ks=CELL_KS, repeats=50,
 
 
 def small_cell_invariance(dev):
-    """The same properties for the WMMA kernel of csrc/conv_lstm_cell.cu
-    (bf16 at channel counts TMA cannot take) and the float32 kernel of
-    csrc/conv_lstm_cell_f32.cu, at small shapes: 10 repeats, rows at
-    offsets 0 and 5 of a launch of 3x the rows. Returns the checked
-    paths."""
+    """The same properties for the wgmma/TMA kernel at 13/20 channels (bf16,
+    which the retired WMMA kernel took before: odd Cx; in padded views with NaN
+    pad lanes, read in place, and on contiguous tensors, staged) and the
+    float32 kernel of csrc/conv_lstm_cell_f32.cu, at small shapes: 10
+    repeats, rows at offsets 0 and 5 of a launch of 3x the rows, every
+    launch through the kernel of its type. Returns the checked paths."""
     done = []
-    for dtype, Cx, C in ((torch.bfloat16, 13, 20), (torch.float32, 16, 24)):
+    for dtype, Cx, C, layout in ((torch.bfloat16, 13, 20, "padded"),
+                                 (torch.bfloat16, 13, 20, "contiguous"),
+                                 (torch.float32, 16, 24, "padded")):
+        counter = ("conv_lstm_cell_sm90" if dtype == torch.bfloat16
+                   else "conv_lstm_cell_f32")
+
+        def rows(B, seed):
+            out = cell_rows(B, dev, dtype, Cx=Cx, C=C, seed=seed)
+            return [t.contiguous() for t in out] if layout == "contiguous" else out
+
         for k in (5, 3):
             w, b = cell_weights(k, dev, dtype, Cx, C)
-            base = cell_rows(5, dev, dtype, Cx=Cx, C=C, seed=k)
-            if kernels.takes_sm90(*base, w):
-                raise AssertionError("expected the WMMA or float32 kernel")
+            base = rows(5, k)
+            before = kernels.launches[counter]
             want = kernels.conv_lstm_cell(*base, w, b)
             for _ in range(9):
                 if not _same(kernels.conv_lstm_cell(*base, w, b), want):
-                    raise AssertionError(f"{dtype} k={k}: repeats differ")
+                    raise AssertionError(f"{dtype} {layout} k={k}: repeats differ")
             for o in (0, 5):
-                big = cell_rows(15, dev, dtype, Cx=Cx, C=C, seed=30 + o)
+                big = rows(15, 30 + o)
                 for t, r in zip(big, base):
                     t[o:o + 5] = r
                 got = kernels.conv_lstm_cell(*big, w, b)
                 if not _same((t[o:o + 5] for t in got), want):
-                    raise AssertionError(f"{dtype} k={k}: offset {o} differs")
-            done.append(f"{'wmma' if dtype == torch.bfloat16 else 'f32'} k={k}")
+                    raise AssertionError(f"{dtype} {layout} k={k}: offset {o} "
+                                         "differs")
+            if kernels.launches[counter] - before != 12:
+                raise AssertionError(f"{dtype} {layout} k={k}: not every "
+                                     f"launch took {counter}")
+            done.append(f"{'sm90' if dtype == torch.bfloat16 else 'f32'} "
+                        f"{layout} k={k}")
     return done
 
 

@@ -79,18 +79,13 @@ def plan_launches(cfg: Config) -> dict:
     """Kernel launches of one plan: per model step 2 cells in each of the
     prior and frame stacks (svg) or in the frame stack (det, cdna_det,
     cdna_robonet), none with GroupNorm cells and none in the vector models
-    (svg_vec, det_vec: fc-LSTMs); bf16 cells through the wgmma/TMA kernel:
-    svg's and CDNA's of g_dim channels where that is a multiple of 8,
-    det's of any even count (g_dim + 2 + 2 = 260 at the canonical config)
-    in views of padded buffers; float32 cells all through the float32
-    kernel; one mask render an iteration."""
+    (svg_vec, det_vec: fc-LSTMs); bf16 cells all through the wgmma/TMA
+    kernel, at any g_dim; float32 cells all through the float32 kernel;
+    one mask render an iteration."""
     steps = (cfg.horizon - 1) * cfg.opt_iter
     per_step = {"svg": 4, "svg_vec": 0, "det_vec": 0}.get(cfg.model, 2)
     cells = 0 if cfg.lstm_group_norm else per_step * steps
-    det_channels = cfg.g_dim + 2 + (2 if cfg.model_use_robot_state else 0)
-    sm90 = cells if cfg.compute_dtype == "bfloat16" and (
-        det_channels % 2 == 0 if cfg.model == "det" else cfg.g_dim % 8 == 0
-    ) else 0
+    sm90 = cells if cfg.compute_dtype == "bfloat16" else 0
     f32 = cells if cfg.compute_dtype == "float32" else 0
     return {"conv_lstm_cell": cells, "conv_lstm_cell_sm90": sm90,
             "conv_lstm_cell_f32": f32, "capsule_mask_render": cfg.opt_iter}
